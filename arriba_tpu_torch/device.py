@@ -9,6 +9,10 @@
 
 There is no batch-size crossover and no fallback: every offloaded call site
 raises on a device error instead of handing the work to the host.
+
+ARRIBA_TPU_TORCH_SHARDED_STATS=<n> or <n>procs runs the mid-cascade
+statistics over n row shards or n torch.distributed ranks of that device
+(``sharded_stats``); it needs an offload device, so ``off`` refuses it.
 """
 
 from __future__ import annotations
@@ -51,7 +55,33 @@ def torch_device():
     return torch.device("cuda")
 
 
+SHARDED_STATS_ENV = "ARRIBA_TPU_TORCH_SHARDED_STATS"
+
+
+def sharded_stats():
+    """The layout ARRIBA_TPU_TORCH_SHARDED_STATS asks for: None (unset), or
+    (n, procs) for ``<n>`` (n row shards in this process) and ``<n>procs``
+    (n torch.distributed ranks; a bare ``procs`` means 2). The sharded
+    statistics run on the offload device, so ``off`` refuses them."""
+    value = os.environ.get(SHARDED_STATS_ENV, "").strip()
+    if not value:
+        return None
+    procs = value.endswith("procs")
+    digits = value[:-len("procs")] if procs else value
+    if procs and not digits:
+        digits = "2"
+    if not digits.isdigit() or int(digits) < 1:
+        raise RuntimeError(f"{SHARDED_STATS_ENV}={value!r} is not <n> or "
+                           f"<n>procs with n >= 1")
+    if mode() == "off":
+        raise RuntimeError(f"{SHARDED_STATS_ENV}={value} needs an offload "
+                           f"device, and {ENV}=off asks for none")
+    return int(digits), procs
+
+
 def check() -> None:
-    """Fail early, before any work, when the requested device is missing."""
+    """Fail early, before any work, when the requested device is missing or
+    the sharded-statistics layout cannot run."""
     if offload_enabled():
         torch_device()
+    sharded_stats()

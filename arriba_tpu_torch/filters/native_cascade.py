@@ -668,15 +668,59 @@ class EventCascade:
             self.materialize()
         return python_fn(*python_args)
 
-    # -- sharded mid-cascade statistics ----------------------------------------
+    # -- sharded mid-cascade statistics (parallel/stats.py) -------------------
 
-    @staticmethod
-    def _no_sharded_stats() -> None:
-        """ARRIBA_TPU_TORCH_SHARDED_STATS (the e-value/in-vitro statistics as
-        collectives across devices or processes) is not ported yet."""
-        if os.environ.get("ARRIBA_TPU_TORCH_SHARDED_STATS"):
-            raise NotImplementedError(
-                "ARRIBA_TPU_TORCH_SHARDED_STATS: ported in a later slice")
+    def _sharded_statistics(self):
+        """(CascadeStats, (dense expression counts, threshold)) of the
+        sharded reduction when ARRIBA_TPU_TORCH_SHARDED_STATS asks for it,
+        else None; computed once. =<n> reduces over n row shards on the
+        offload device (parallel/stats.py), =<n>procs across n
+        torch.distributed ranks (parallel/multihost.py: NCCL with one card
+        per rank, gloo on the CPU), which also merges the candidate cluster
+        tables and checks the merged table against the host fusion table.
+        Integer-exact either way, so the output stays byte-identical for
+        every layout. A failure raises: there is no fallback to the host
+        pass."""
+        from ..device import sharded_stats
+        layout = sharded_stats()
+        if layout is None:
+            return None
+        cached = getattr(self, "_sharded_stats_cache", None)
+        if cached is not None:
+            return cached
+        from ..filters.in_vitro import expression_gene_incidence
+        from ..output.stdmap_order import fusion_map_order
+        self.materialize()
+        # the partner dedup is sensitive to the reference's map iteration
+        # order (see event_level.estimate_expected_fusions): feed the
+        # sharded reduction the same emulated order
+        fusion_list = list(self.fusions.values())
+        order = fusion_map_order(list(self.fusions.keys()))
+        fusion_list = [fusion_list[i] for i in order]
+        incidence = expression_gene_incidence(self.ca)
+        n, procs = layout
+        if procs:
+            from ..parallel.multihost import run_multiprocess_stats
+            stats, expression, n_clusters = run_multiprocess_stats(
+                fusion_list, self.genes, incidence,
+                self.options.high_expression_quantile, n)
+            # the merged candidate clusters must reproduce the host fusion
+            # table: one cluster per fusion with >= 1 supporting read
+            expected = sum(1 for f in fusion_list
+                           if f.split_read1_list or f.split_read2_list
+                           or f.discordant_mate_list)
+            if n_clusters != expected:
+                raise RuntimeError(
+                    f"sharded candidate merge diverged from the host fusion "
+                    f"table: {n_clusters} clusters != {expected}")
+        else:
+            from ..parallel.dp import make_mesh
+            from ..parallel.stats import compute_stats_sharded
+            stats, expression = compute_stats_sharded(
+                fusion_list, self.genes, incidence,
+                self.options.high_expression_quantile, make_mesh(n))
+        self._sharded_stats_cache = (stats, expression)
+        return self._sharded_stats_cache
 
     # -- stages (pipeline call order) ----------------------------------------
 
@@ -707,7 +751,11 @@ class EventCascade:
 
     def estimate_expected_fusions(self) -> None:
         from .event_level import estimate_expected_fusions
-        self._no_sharded_stats()
+        sharded = self._sharded_statistics()
+        if sharded is not None:
+            return estimate_expected_fusions(
+                self.fusions, self.state.mapped_reads, self.genes,
+                self.exons, self.exon_index, stats=sharded[0])
         return self._dispatch(
             "ev_estimate_expected", (int(self.state.mapped_reads),),
             estimate_expected_fusions,
@@ -809,7 +857,12 @@ class EventCascade:
 
     def in_vitro(self) -> int:
         from .in_vitro import filter_in_vitro
-        self._no_sharded_stats()
+        sharded = self._sharded_statistics()
+        if sharded is not None:
+            return filter_in_vitro(
+                self.fusions, self.ca, self.options.high_expression_quantile,
+                self.state.gene_index, self.state.coverage,
+                expression=sharded[1])
         return self._dispatch(
             "ev_in_vitro", (float(self.options.high_expression_quantile),),
             filter_in_vitro,
@@ -818,7 +871,13 @@ class EventCascade:
 
     def recover_both_spliced(self) -> int:
         from .in_vitro import recover_both_spliced
-        self._no_sharded_stats()
+        sharded = self._sharded_statistics()
+        if sharded is not None:
+            return recover_both_spliced(
+                self.fusions, self.ca, self.genes, self.exons,
+                self.exon_index, self.state.coverage, 200,
+                self.options.high_expression_quantile, 1000, 1000,
+                expression=sharded[1])
         return self._dispatch(
             "ev_recover_both_spliced",
             (200, float(self.options.high_expression_quantile), 1000, 1000),

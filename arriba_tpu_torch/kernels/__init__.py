@@ -8,15 +8,17 @@ and raises if the launch returned a CUDA error. It adds one to
 show that its main path went through the kernel. The value ranges of the
 inputs (row lengths) are checked on the host where the callers build them;
 the kernels clamp those lengths to their rows, so no value can make them
-read outside their inputs. ``accept_wavefront`` and ``low_entropy``
-allocate the output and return bool verdicts. The plain PyTorch versions
-(the CPU path and the reference the kernels are held against) live beside
-their callers in ``ops/``.
+read outside their inputs. ``accept_wavefront``, ``low_entropy`` and
+``smith_waterman`` allocate the output and return bool verdicts (int32
+scores for the last). The plain PyTorch versions (the CPU path and the
+reference the kernels are held against) live beside their callers in
+``ops/``.
 """
 
 from __future__ import annotations
 
-launch_counts = {"accept_wavefront": 0, "low_entropy": 0}
+launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
+                 "smith_waterman": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,3 +110,41 @@ def low_entropy(packed, meta):
                       device=packed.device)
     launch_low_entropy(packed, meta, out)
     return out.view(torch.bool)
+
+
+# K3 packs a stripe's last h with a window byte into one int32 shuffle
+SW_MAX_L = 512
+SW_MAX_SCORE = (1 << 23) - 1
+
+
+def launch_smith_waterman(reads, windows, out, match: int = 1,
+                          mismatch: int = -1, gap: int = -1) -> None:
+    """K3 (csrc/smith_waterman.cu) into out, int32 [N]: the best local
+    alignment score of each (read, window) row. reads uint8 [N, L] and
+    windows uint8 [N, W], both padded with PAD_CODE (4); L <= 512."""
+    import torch
+
+    _require(reads, "reads", torch.uint8, 2)
+    _require(windows, "windows", torch.uint8, 2)
+    _require(out, "out", torch.int32, 1)
+    n, L = reads.shape
+    W = windows.shape[1]
+    if windows.shape[0] != n or out.shape[0] != n:
+        raise ValueError("reads, windows and out must have the same rows")
+    if L > SW_MAX_L:
+        raise ValueError(f"smith_waterman takes reads of at most {SW_MAX_L} "
+                         f"positions, got {L}")
+    if (L + W) * max(match, mismatch, gap, 0) > SW_MAX_SCORE:
+        raise ValueError("scores could pass 2^23, which K3 does not carry")
+    _launch("smith_waterman", reads.data_ptr(), windows.data_ptr(),
+            out.data_ptr(), n, L, W, match, mismatch, gap)
+
+
+def smith_waterman(reads, windows, match: int = 1, mismatch: int = -1,
+                   gap: int = -1):
+    """K3: int32 [N] scores (see launch_smith_waterman)."""
+    import torch
+
+    out = torch.empty(reads.shape[0], dtype=torch.int32, device=reads.device)
+    launch_smith_waterman(reads, windows, out, match, mismatch, gap)
+    return out

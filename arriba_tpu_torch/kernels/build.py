@@ -21,7 +21,7 @@ import sys
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("accept_wavefront", "low_entropy")
+KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,6 +33,9 @@ _SIGNATURES = {
     "low_entropy": ("arriba_low_entropy",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]),
+    "smith_waterman": ("arriba_smith_waterman",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p]),
 }
 
 _loaded: dict = {}

@@ -19,6 +19,11 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
    wavefront. A device ACCEPT is sound (align() necessarily accepts);
    splice/deletion recursion chains stay host-only, so a device reject
    decides nothing.
+3. `realign_step`, the data-parallel path's fused prefilter and scoring
+   step: the 8-mer screen plus `smith_waterman_scores`, the best local
+   alignment score per row. CUDA tensors run the hand-written kernel K3
+   (kernels/csrc/smith_waterman.cu); CPU tensors run
+   `smith_waterman_scores_plain`, the twin of the JAX package's wavefront.
 """
 
 from __future__ import annotations
@@ -56,6 +61,70 @@ def shared_kmer_mask(reads: torch.Tensor, windows: torch.Tensor,
     idx = idx.clamp(max=window_kmers.shape[1] - 1)
     found = torch.gather(window_kmers, 1, idx) == read_kmers
     return (found & (read_kmers >= 0)).any(dim=1)
+
+
+def smith_waterman_scores_plain(reads, windows, match: int = 1,
+                                mismatch: int = -1,
+                                gap: int = -1) -> torch.Tensor:
+    """The plain PyTorch version of K3: int32 [N], the best local alignment
+    score of each (read, window) row (match / mismatch substitution,
+    linear gap, floor 0, h = 0 wherever either byte is PAD_CODE). A step-
+    for-step twin of the JAX package's anti-diagonal wavefront: L + W - 1
+    steps over [N, L], carrying the two previous diagonals."""
+    n, L = reads.shape
+    W = windows.shape[1]
+    device = reads.device
+    # reversed and padded windows: diagonal d reads wrev[:, W-1-d+L : ...+L]
+    wrev = torch.flip(windows, dims=[1])
+    pad = torch.full((n, L), PAD_CODE, dtype=windows.dtype, device=device)
+    wrev = torch.cat([pad, wrev, pad], dim=1)
+    read_valid = reads != PAD_CODE
+    zero_col = torch.zeros((n, 1), dtype=torch.int32, device=device)
+    h_prev = torch.zeros((n, L), dtype=torch.int32, device=device)
+    h_prev2 = h_prev
+    best = torch.zeros(n, dtype=torch.int32, device=device)
+    match_t, mismatch_t = (torch.tensor(x, dtype=torch.int32, device=device)
+                           for x in (match, mismatch))
+    for d in range(L + W - 1):
+        window_diag = wrev[:, W - 1 - d + L:W - 1 - d + 2 * L]  # windows[d-i]
+        substitution = torch.where(reads == window_diag, match_t, mismatch_t)
+        valid = read_valid & (window_diag != PAD_CODE)
+        # the previous diagonals shifted one read position for the i-1 terms
+        h_prev_shift = torch.cat([zero_col, h_prev[:, :-1]], dim=1)
+        h_prev2_shift = torch.cat([zero_col, h_prev2[:, :-1]], dim=1)
+        h = torch.maximum((h_prev2_shift + substitution).clamp(min=0),
+                          torch.maximum(h_prev_shift + gap, h_prev + gap))
+        h = torch.where(valid, h, 0)
+        best = torch.maximum(best, h.amax(dim=1))
+        h_prev2, h_prev = h_prev, h
+    return best
+
+
+def smith_waterman_scores(reads, windows, match: int = 1, mismatch: int = -1,
+                          gap: int = -1) -> torch.Tensor:
+    """int32 [N] best local alignment scores: K3 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if reads.is_cuda:
+        from .. import kernels
+        return kernels.smith_waterman(reads.contiguous(),
+                                      windows.contiguous(), match, mismatch,
+                                      gap)
+    return smith_waterman_scores_plain(reads, windows, match, mismatch, gap)
+
+
+def realign_step(reads, windows, length,
+                 min_score_fraction: float = 0.8) -> dict:
+    """The fused prefilter and scoring step for a batch of (read, window)
+    rows: per-row seed hits, SW scores, and whether the row can possibly be
+    accepted by the reference aligner (seed present AND local score >=
+    min_align_fraction * read length, in float32 as the JAX step has it)."""
+    seeds = shared_kmer_mask(reads, windows)
+    scores = smith_waterman_scores(reads, windows)
+    fraction = torch.tensor(min_score_fraction, dtype=torch.float32,
+                            device=length.device)
+    min_score = (fraction * length.to(torch.float32) + 0.5).to(torch.int32)
+    return {"seed_hit": seeds, "sw_score": scores,
+            "can_align": seeds & (scores >= min_score)}
 
 
 # ---------------------------------------------------------------------------

@@ -12,20 +12,30 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with exact equality: K1 (accept wavefront) at
    512 rows x 192 read bytes x 8192 window bytes, K2 (low-entropy scan) at
-   131,072 reads x 150 codes. Kernel time is the median of CUDA-event timed
-   launches after a warm-up, inputs checked and output allocated ahead; the
-   bound is the larger of bytes over the memory rate and the operations the
-   algorithm needs over the peak scalar rate.
+   131,072 reads x 150 codes, K3 (Smith-Waterman scores) at 65,536 rows x
+   256 read codes x 256 window codes. Kernel time is the median of
+   CUDA-event timed launches after a warm-up, inputs checked and output
+   allocated ahead; the bound is the larger of bytes over the memory rate
+   and the operations the algorithm needs over the peak scalar rate.
 3. The main path: the genome-scale 150 bp sample (bench_samples.build_tier2)
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
    ARRIBA_TPU_TORCH_NO_NATIVE_EVENT=1), which runs K2 in the read cascade and
    K1 in filter_mismappers; (B) the host path (DEVICE=off); (C) offload with
-   the default native event stages (K2 only). The output files and every
+   the default native event stages (K2 only); (D) C with the mid-cascade
+   statistics over four row shards on the card
+   (ARRIBA_TPU_TORCH_SHARDED_STATS=4); (E) C with them across one NCCL rank
+   per card (=<cards>procs), which also merges the candidate clusters and
+   checks them against the host fusion table. The output files and every
    stage counter must be byte-equal across the runs, and K1 and K2 must have
    launched in run A. Each run reports its seconds and those of the
    offloaded ops. The sample is built at full size.
 4. The flagship step (arriba_tpu_torch.entry) on the card against the CPU.
+5. The data-parallel path at full size: entry.sharded_check on run A's
+   pipeline state at 1 and 4 row shards on the card (the filter step over
+   every tensorized mate, the realignment step with K3, the cluster step
+   over the whole fusion table, the stats step), equal between the two and
+   with the host fusion table; K3 must have launched in this phase.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -70,23 +80,28 @@ AW_OPS = {"byte match": 1, "code match": 1, "streak start": 2,
 LE_OPS = {"code extract": 2, "3-mer shift": 3, "selection": 5,
           "three counters": 3, "three threshold tests": 5,
           "selected / crossed branches": 2, "loop": 2}
+# K3, one valid (read, window) cell (a read and a window byte both not PAD):
+SW_OPS = {"match test and select": 2, "three candidate adds": 3,
+          "max of four": 3, "running best": 1}
 AW_OPS_PER_CELL = sum(AW_OPS.values())          # 36
 LE_OPS_PER_POSITION = sum(LE_OPS.values())      # 22
+SW_OPS_PER_CELL = sum(SW_OPS.values())          # 9
 
 
 def log(message: str) -> None:
     print(message, flush=True)
 
 
-def cuda_ms(fn, runs: int, setup=None) -> float:
+def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True) -> float:
     """Median milliseconds of fn() over runs CUDA-event timed calls, after
-    one warm-up call; setup(), when given, runs before each call outside
-    the timed window."""
+    one warm-up call unless the caller has just made one; setup(), when
+    given, runs before each call outside the timed window."""
     import torch
 
-    if setup is not None:
-        setup()
-    fn()
+    if warm_up:
+        if setup is not None:
+            setup()
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
@@ -172,6 +187,42 @@ def low_entropy_inputs(seed: int = 3, n: int = 131072, L: int = 150):
     return codes, lengths, a1s, a1e, a2s, a2e
 
 
+def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
+                          W: int = 256):
+    """K3's main-path shape: code rows (0-3, PAD 4 beyond a row's length)
+    as tensorize makes them for 150 bp reads, against windows of the dry
+    run's width. By row % 4: an exact copy of a window stretch, a copy with
+    5 % substitutions, a copy with a 1-8 base gap, a random read; a few
+    windows end in PAD. Scores span 0 to the read length."""
+    import numpy as np
+
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    rng = np.random.default_rng(seed)
+    windows = rng.integers(0, 4, (n, W)).astype(np.uint8)
+    max_gap = 8
+    span = min(L, W - max_gap)
+    length = rng.integers(max(1, span // 4), span + 1, n)
+    gap = np.where(np.arange(n) % 4 == 2, rng.integers(1, max_gap + 1, n), 0)
+    cut = (rng.random(n) * length).astype(np.int64)
+    start = (rng.random(n) * (W - length - gap + 1)).astype(np.int64)
+    i = np.arange(L)[None, :]
+    source = np.minimum(start[:, None] + i + np.where(i >= cut[:, None],
+                                                      gap[:, None], 0), W - 1)
+    reads = np.take_along_axis(windows, source, axis=1)
+    kind = np.arange(n) % 4
+    flips = (rng.random((n, L)) < 0.05) & (kind == 1)[:, None]
+    reads[flips] = rng.integers(0, 4, int(flips.sum()))
+    random_rows = kind == 3
+    reads[random_rows] = rng.integers(0, 4, (int(random_rows.sum()), L))
+    reads[i >= length[:, None]] = PAD_CODE
+    short = rng.random(n) < 0.05
+    windows[short[:, None] & (np.arange(W)[None, :]
+                              >= rng.integers(0, W, n)[:, None])] = PAD_CODE
+    reads[::1024] = PAD_CODE                            # empty reads
+    return reads, windows
+
+
 def check_kernels() -> list:
     import numpy as np
     import torch
@@ -199,8 +250,11 @@ def check_kernels() -> list:
     out = torch.zeros(len(reads), dtype=torch.int32, device=cuda)
     ms = cuda_ms(lambda: kernels.launch_accept_wavefront(r, w, p, out), 20,
                  setup=out.zero_)
+    # the plain version takes seconds at this shape: one call, warmed up by
+    # the comparison above
     plain_ms = cuda_ms(
-        lambda: realign.accept_wavefront_plain(r, w, *p.unbind(dim=1)), 3)
+        lambda: realign.accept_wavefront_plain(r, w, *p.unbind(dim=1)), 1,
+        warm_up=False)
     # each diagonal's walk ends at its first accepting cell: a row that
     # accepts needs as little as one diagonal (read_len cells), one that
     # does not needs every valid cell
@@ -248,6 +302,38 @@ def check_kernels() -> list:
         "name": "low_entropy", "route": "cuda",
         "source": "arriba_tpu_torch/kernels/csrc/low_entropy.cu",
         "replaces": "arriba_tpu/ops/readfilters.py:206",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    # K3: Smith-Waterman scores at the dry run's shape
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    reads, windows = smith_waterman_inputs()
+    r, w = (torch.from_numpy(x).to(cuda) for x in (reads, windows))
+    got = realign.smith_waterman_scores(r, w)
+    torch.cuda.synchronize()
+    want = realign.smith_waterman_scores_plain(r, w)
+    err = int((got - want).abs().max())
+    read_len = (reads != PAD_CODE).sum(axis=1).astype(np.int64)
+    win_len = (windows != PAD_CODE).sum(axis=1).astype(np.int64)
+    low, high = int(want.min()), int(want.max())
+    log(f"K3 smith_waterman: scores {low}..{high} (longest read "
+        f"{int(read_len.max())}), max |kernel - plain| = {err}")
+    if err != 0 or low != 0 or high != int(read_len.max()):
+        raise SystemExit("K3 disagrees with its plain version or the scores "
+                         "do not span 0 to the read length")
+    out = torch.empty(len(reads), dtype=torch.int32, device=cuda)
+    ms = cuda_ms(lambda: kernels.launch_smith_waterman(r, w, out), 20)
+    plain_ms = cuda_ms(lambda: realign.smith_waterman_scores_plain(r, w), 3)
+    # every cell whose read and window bytes are not PAD counts; none can be
+    # skipped
+    cells = float((read_len * win_len).sum())
+    n_bytes = reads.nbytes + windows.nbytes + 4 * len(reads)
+    bound_ms, bound_by = bound(n_bytes, cells * SW_OPS_PER_CELL)
+    records.append({
+        "name": "smith_waterman", "route": "cuda",
+        "source": "arriba_tpu_torch/kernels/csrc/smith_waterman.cu",
+        "replaces": "arriba_tpu/ops/realign.py:162",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     return records
@@ -325,20 +411,48 @@ def timed_ops(totals: dict):
             setattr(module, name, inner)
 
 
-# (label, environment): A is the main path, B the host reference, C the
-# default engine configuration with offload on (only the low-entropy scan
-# goes to the card there)
-RUNS = (("A", {"ARRIBA_TPU_TORCH_DEVICE": "cuda",
-               "ARRIBA_TPU_TORCH_NO_NATIVE_EVENT": "1"}),
-        ("B", {"ARRIBA_TPU_TORCH_DEVICE": "off"}),
-        ("C", {"ARRIBA_TPU_TORCH_DEVICE": "cuda"}))
+def runs(n_cards: int):
+    """(label, environment): A is the main path, B the host reference, C
+    the default engine configuration with offload on (only the low-entropy
+    scan goes to the card there), D and E C with the sharded mid-cascade
+    statistics, over four row shards on the card and across one NCCL rank
+    per card."""
+    return (("A", {"ARRIBA_TPU_TORCH_DEVICE": "cuda",
+                   "ARRIBA_TPU_TORCH_NO_NATIVE_EVENT": "1"}),
+            ("B", {"ARRIBA_TPU_TORCH_DEVICE": "off"}),
+            ("C", {"ARRIBA_TPU_TORCH_DEVICE": "cuda"}),
+            ("D", {"ARRIBA_TPU_TORCH_DEVICE": "cuda",
+                   "ARRIBA_TPU_TORCH_SHARDED_STATS": "4"}),
+            ("E", {"ARRIBA_TPU_TORCH_DEVICE": "cuda",
+                   "ARRIBA_TPU_TORCH_SHARDED_STATS": f"{n_cards}procs"}))
 
 
-def main_path(sample: pathlib.Path, threads: int, runs=RUNS) -> dict:
+@contextlib.contextmanager
+def captured_states(states: list):
+    """Append the PipelineState each pipeline.run returns to states."""
+    from arriba_tpu_torch import pipeline
+
+    inner = pipeline.run
+
+    def wrapped(options):
+        state = inner(options)
+        states.append(state)
+        return state
+
+    pipeline.run = wrapped
+    try:
+        yield states
+    finally:
+        pipeline.run = inner
+
+
+def main_path(sample: pathlib.Path, threads: int, runs,
+              states=None) -> dict:
     """Every run of runs through the CLI; outputs and stage counters must
     equal the first run's. Returns {label: (seconds, chimeric reads, kernel
     launches, {op: (seconds, calls)})}; the launch counts are zeroed just
-    before each run and read just after it."""
+    before each run and read just after it. The first run's PipelineState
+    is appended to states when given."""
     from arriba_tpu_torch import kernels
 
     results = {}
@@ -346,7 +460,9 @@ def main_path(sample: pathlib.Path, threads: int, runs=RUNS) -> dict:
     for label, env in runs:
         ops: dict = {}
         kernels.reset_launch_counts()
-        with timed_ops(ops):
+        capture = (captured_states(states) if states is not None
+                   and reference is None else contextlib.nullcontext())
+        with timed_ops(ops), capture:
             seconds, fusions, discarded, text = run_cli(sample, label, env,
                                                         threads)
         launches = dict(kernels.launch_counts)
@@ -413,6 +529,35 @@ def check_entry() -> None:
         f"within {worst:.3f} of the tolerance)")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the data-parallel path at full size
+
+def check_sharded(state, n: int) -> int:
+    """entry.sharded_check on run A's state at 1 and n shards on the card;
+    returns K3's launches in it."""
+    import torch
+
+    from arriba_tpu_torch import entry, kernels
+
+    kernels.reset_launch_counts()
+    summary = entry.sharded_check(state, state.options, n,
+                                  device=torch.device("cuda"))
+    launches = dict(kernels.launch_counts)
+    log(f"sharded check: {summary['reads']} tensorized mates "
+        f"({summary['rows']} rows x {summary['width']}), tensorize "
+        f"{summary['tensorize_seconds']:.3f} s; 1 and {n} shards equal; "
+        f"{summary['total_alignable']} alignable, {summary['n_clusters']} "
+        f"clusters (= host fusion table), {summary['partner_edges']} partner "
+        f"edges; kernel launches {launches}")
+    for shards, seconds in ((1, summary["reference_seconds"]),
+                            (n, summary["seconds"])):
+        log(f"  {shards} shard(s): " + ", ".join(
+            f"{step} {value:.3f} s" for step, value in seconds.items()))
+    if launches["smith_waterman"] <= 0:
+        raise SystemExit("K3 never launched on the data-parallel path")
+    return launches["smith_waterman"]
+
+
 def main() -> int:
     import torch
 
@@ -450,7 +595,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # phase 2
+    t0 = time.perf_counter()
     records = check_kernels()
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
     import bench_samples
@@ -462,21 +609,35 @@ def main() -> int:
     # each run prints its stages' seconds to stderr
     os.environ["ARRIBA_TPU_TORCH_STAGE_TIMES"] = "1"
     threads = min(8, os.cpu_count() or 1)
-    results = main_path(sample, threads)
+    states: list = []
+    t0 = time.perf_counter()
+    results = main_path(sample, threads, runs(torch.cuda.device_count()),
+                        states)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
     seconds_a, chimeric, launches, _ = results["A"]
     log(f"run A: {seconds_a:.3f} s wall, {chimeric / seconds_a:.1f} "
         f"chimeric reads/s")
+
+    # phase 4
+    t0 = time.perf_counter()
+    check_entry()
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+
+    # phase 5: the data-parallel path is K3's main path
+    t0 = time.perf_counter()
+    launches["smith_waterman"] = check_sharded(states[0], 4)
+    del states[:]
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     for record in records:
         record["launches"] = launches[record["name"]]
+        where = "phase 5" if record["name"] == "smith_waterman" else "run A"
         log(f"{record['name']}: kernel {record['ms']:.4f} ms, plain "
             f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
-            f"({record['bound_by']}), {record['launches']} launches in run A")
+            f"({record['bound_by']}), {record['launches']} launches in "
+            f"{where}")
         if record["launches"] <= 0:
             raise SystemExit(f"{record['name']} never launched on the main "
                              f"path")
-
-    # phase 4
-    check_entry()
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

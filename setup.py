@@ -28,7 +28,8 @@ setup(
               "arriba_tpu_torch", "arriba_tpu_torch.annotation",
               "arriba_tpu_torch.filters", "arriba_tpu_torch.ingest",
               "arriba_tpu_torch.io", "arriba_tpu_torch.kernels",
-              "arriba_tpu_torch.ops", "arriba_tpu_torch.output"],
+              "arriba_tpu_torch.ops", "arriba_tpu_torch.output",
+              "arriba_tpu_torch.parallel"],
     package_data={"arriba_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension("arriba_tpu._native",

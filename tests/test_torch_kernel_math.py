@@ -1,11 +1,14 @@
 """The per-cell / per-position code the CUDA kernels run, on the CPU.
 
-kernels/csrc/accept_wavefront.cuh and low_entropy.cuh hold the update
-functions K1 and K2 call, as ``__host__ __device__`` code. Here g++ compiles
-them into a small harness that walks rows the way the kernels do (K1: one
-independent walk per diagonal, OR over diagonals; K2: one sequential walk
-per read over its 2-bit-packed codes), and the verdicts are held, exactly,
-against the port's plain PyTorch versions and the JAX package's ops.
+kernels/csrc/accept_wavefront.cuh, low_entropy.cuh and smith_waterman.cuh
+hold the update functions K1, K2 and K3 call, as ``__host__ __device__``
+code. Here g++ compiles them into a small harness that walks rows the way
+the kernels do (K1: one independent walk per diagonal, OR over diagonals;
+K2: one sequential walk per read over its 2-bit-packed codes; K3: the 32
+lanes of a warp, each a stripe of read positions, stepping over the window
+columns with lane k taking lane k-1's previous output as the shuffle does),
+and the results are held, exactly, against the port's plain PyTorch
+versions and the JAX package's ops.
 """
 
 import ctypes
@@ -28,6 +31,35 @@ HARNESS = r"""
 #include <stdint.h>
 #include "accept_wavefront.cuh"
 #include "low_entropy.cuh"
+#include "smith_waterman.cuh"
+
+// K3's warp for one row: lane k reads lane k-1's output of the previous
+// step (lanes run from 31 down to 0, so that output is not yet replaced)
+template <int S>
+static int sw_row(const uint8_t* read, const uint8_t* window, int L, int W,
+                  int match, int mismatch, int gap) {
+    arriba::SwLane<S> lanes[32];
+    int packed[32];
+    for (int k = 0; k < 32; ++k) {
+        arriba::sw_lane_init<S>(&lanes[k], read, k * S, L);
+        packed[k] = arriba::SW_PAD;
+    }
+    const int n_steps = L > 0 ? W + (L - 1) / S : 0;
+    for (int t = 0; t < n_steps; ++t) {
+        for (int k = 31; k >= 0; --k) {
+            const int up = k == 0 ? 0 : packed[k - 1] >> 8;
+            const int w = k == 0 ? (t < W ? window[t] : arriba::SW_PAD)
+                                 : packed[k - 1] & 0xff;
+            const int h = arriba::sw_lane_column<S>(&lanes[k], up, w, match,
+                                                    mismatch, gap);
+            packed[k] = (h << 8) | w;
+        }
+    }
+    int best = 0;
+    for (int k = 0; k < 32; ++k) best = lanes[k].best > best ? lanes[k].best
+                                                             : best;
+    return best;
+}
 
 extern "C" {
 
@@ -58,6 +90,21 @@ void le_rows(const uint8_t* packed, const int32_t* meta, uint8_t* out,
     }
 }
 
+// K3's work per row, with the stripe the kernel's dispatch picks
+void sw_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
+             int n, int L, int W, int match, int mismatch, int gap) {
+    const int stripe = (L + 31) / 32;
+    for (int row = 0; row < n; ++row) {
+        const uint8_t* r = reads + (long)row * L;
+        const uint8_t* w = windows + (long)row * W;
+        out[row] = stripe <= 1 ? sw_row<1>(r, w, L, W, match, mismatch, gap)
+                 : stripe <= 2 ? sw_row<2>(r, w, L, W, match, mismatch, gap)
+                 : stripe <= 4 ? sw_row<4>(r, w, L, W, match, mismatch, gap)
+                 : stripe <= 8 ? sw_row<8>(r, w, L, W, match, mismatch, gap)
+                 : sw_row<16>(r, w, L, W, match, mismatch, gap);
+    }
+}
+
 }
 """
 
@@ -78,6 +125,7 @@ def harness(tmp_path_factory):
     lib = ctypes.CDLL(str(library))
     lib.aw_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.sw_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     return lib
 
 
@@ -178,3 +226,27 @@ def test_low_entropy_position_update_matches_plain_and_jax(harness,
     np.testing.assert_array_equal(native != 0, plain)
     np.testing.assert_array_equal(plain, xla)
     assert 0 < plain.sum() < len(codes)
+
+
+# stripes of 1, 2, 4, 8 and 16 read positions a lane; L not a multiple of 32
+# and W < L among them
+@pytest.mark.parametrize("seed,n,L,W", [(1, 12, 20, 50), (2, 12, 37, 300),
+                                        (3, 10, 100, 64), (4, 8, 256, 256),
+                                        (5, 4, 300, 180)])
+def test_smith_waterman_cell_update_matches_plain_and_jax(harness, seed, n,
+                                                          L, W):
+    from .test_torch_realign import _sw_rows
+
+    reads, windows = _sw_rows(seed, n, L, W)
+    for match, mismatch, gap in ((1, -1, -1), (2, -3, -2)):
+        native = np.zeros(n, np.int32)
+        harness.sw_rows(_ptr(reads), _ptr(windows), _ptr(native), n, L, W,
+                        match, mismatch, gap)
+        plain = realign.smith_waterman_scores(
+            torch.from_numpy(reads), torch.from_numpy(windows), match,
+            mismatch, gap).numpy()
+        np.testing.assert_array_equal(native, plain)
+    xla = np.asarray(jax_realign.smith_waterman_scores(
+        jnp.asarray(reads), jnp.asarray(windows), match, mismatch, gap))
+    np.testing.assert_array_equal(plain, xla)
+    assert plain.min() == 0 and plain.max() > 8

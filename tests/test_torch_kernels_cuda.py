@@ -55,11 +55,42 @@ def test_low_entropy_kernel_matches_plain(cuda):
     assert 0 < int(want.sum()) < len(codes)
 
 
+# (L, W): tensorize's width against the dry run's windows, L not a
+# multiple of 32 with W < L, a long read past a stripe of 8, a stripe of 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,W", [(256, 256), (150, 100), (300, 1000),
+                                 (20, 64)])
+def test_smith_waterman_kernel_matches_plain(cuda, L, W):
+    from chip_smoke import smith_waterman_inputs
+
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    reads, windows = (torch.from_numpy(x).to(cuda) for x in
+                      smith_waterman_inputs(n=512, L=L, W=W))
+    reads[5] = PAD_CODE                 # a row of pad only
+    windows[6] = PAD_CODE
+    before = kernels.launch_counts["smith_waterman"]
+    got = realign.smith_waterman_scores(reads, windows)
+    want = realign.smith_waterman_scores_plain(reads, windows)
+    assert kernels.launch_counts["smith_waterman"] == before + 1
+    assert torch.equal(got, want)
+    longest = int((reads != PAD_CODE).sum(dim=1).max())
+    assert int(want[5]) == int(want[6]) == 0
+    assert min(L, W) // 2 < int(want.max()) <= longest
+    for params in ((2, -3, -2), (1, 0, -1)):
+        assert torch.equal(realign.smith_waterman_scores(reads, windows,
+                                                         *params),
+                           realign.smith_waterman_scores_plain(
+                               reads, windows, *params))
+
+
 _AW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
             torch.ones(2, 16, dtype=torch.uint8),
             torch.zeros(2, 5, dtype=torch.int32))
 _LE_ARGS = (torch.zeros(2, 4, dtype=torch.uint8),
             torch.zeros(2, 8, dtype=torch.int32))
+_SW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
+            torch.zeros(2, 16, dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("name,args", [
@@ -68,6 +99,9 @@ _LE_ARGS = (torch.zeros(2, 4, dtype=torch.uint8),
      _AW_ARGS + (torch.zeros(2, dtype=torch.int32),)),
     ("low_entropy", _LE_ARGS),
     ("launch_low_entropy", _LE_ARGS + (torch.zeros(2, dtype=torch.uint8),)),
+    ("smith_waterman", _SW_ARGS),
+    ("launch_smith_waterman",
+     _SW_ARGS + (torch.zeros(2, dtype=torch.int32),)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(name, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach it
@@ -137,17 +171,23 @@ def test_plain_ops_on_the_card_match_the_cpu(cuda):
 @pytest.mark.parametrize("sample,env", [
     ("multi_event_sample", {"ARRIBA_TPU_TORCH_NO_NATIVE": "1"}),
     ("spliced_homolog_sample", {"ARRIBA_TPU_TORCH_NO_NATIVE_EVENT": "1"}),
-])
+    ("multi_event_sample", {"ARRIBA_TPU_TORCH_NO_NATIVE": "1",
+                            "ARRIBA_TPU_TORCH_SHARDED_STATS": "4"}),
+], ids=["python_engine", "python_events", "python_engine_sharded4"])
 def test_cli_on_the_card_matches_the_host_path(cuda, tmp_path, sample, env):
     """The CLI with its offloaded stages on the card: the pure-Python
-    engine (annotation triage, writer pileup, screen, accept) and the
-    Python event stages give the host path's bytes and counters."""
+    engine (annotation triage, writer pileup, screen, accept), the Python
+    event stages, and the pure-Python engine with its mid-cascade
+    statistics over four row shards on the card give the host path's bytes
+    and counters."""
     from . import scenario
     from .torch_cli import assert_same_outputs, run_cli
 
     args = getattr(scenario, sample)(tmp_path)
     assert_same_outputs(
         run_cli("arriba_tpu_torch", args, tmp_path, "host",
-                dict(env, ARRIBA_TPU_TORCH_DEVICE="off")),
+                {key: value for key, value in env.items()
+                 if key != "ARRIBA_TPU_TORCH_SHARDED_STATS"}
+                | {"ARRIBA_TPU_TORCH_DEVICE": "off"}),
         run_cli("arriba_tpu_torch", args, tmp_path, "card",
                 dict(env, ARRIBA_TPU_TORCH_DEVICE="cuda")))

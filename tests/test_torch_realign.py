@@ -221,3 +221,91 @@ def test_accept_pairs_streams_several_batches():
                                     batch_rows=5)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.tile(got[:len(reads)], 3))
+
+
+def _plain_dp_scores(reads, windows):
+    """The textbook Smith-Waterman recurrence, one cell at a time (+1 / -1,
+    linear gap -1, floor 0, PAD cells 0)."""
+    scores = []
+    for read, window in zip(reads, windows):
+        h = np.zeros((len(read) + 1, len(window) + 1), np.int64)
+        for i, a in enumerate(read, 1):
+            for j, b in enumerate(window, 1):
+                if a == PAD_CODE or b == PAD_CODE:
+                    continue
+                h[i, j] = max(h[i - 1, j - 1] + (1 if a == b else -1),
+                              h[i - 1, j] - 1, h[i, j - 1] - 1, 0)
+        scores.append(int(h.max()))
+    return np.asarray(scores, np.int32)
+
+
+def _sw_rows(seed, n, L, W):
+    """Random rows, exact and mutated read copies, copies with a gap, PAD
+    tails on both sides, an all-PAD read and an all-PAD window."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    windows = rng.integers(0, 4, (n, W)).astype(np.uint8)
+    for row in range(n):
+        kind = row % 5
+        length = int(rng.integers(1, min(L, W) + 1))
+        at = int(rng.integers(0, W - length + 1))
+        copy = windows[row, at:at + length].copy()
+        if kind == 1:
+            copy[rng.integers(0, length, 3)] = rng.integers(0, 4, 3)
+        elif kind == 2 and length > 8:
+            cut = int(rng.integers(1, length - 4))
+            copy = np.concatenate([copy[:cut], copy[cut + 2:]])
+        if kind < 3:
+            reads[row, :len(copy)] = copy
+        if kind == 3:
+            reads[row, int(rng.integers(0, L)):] = PAD_CODE
+            windows[row, int(rng.integers(0, W)):] = PAD_CODE
+    reads[n - 1] = PAD_CODE
+    windows[n - 2] = PAD_CODE
+    return reads, windows
+
+
+@pytest.mark.parametrize("seed,n,L,W", [(3, 10, 24, 40), (8, 10, 37, 21)])
+def test_smith_waterman_plain_matches_jax_pallas_and_dp(seed, n, L, W):
+    """The plain version against the JAX package's jnp wavefront, its
+    Pallas kernel in interpret mode (as tests/test_device_ops.py runs it)
+    and the textbook recurrence, exactly."""
+    reads, windows = _sw_rows(seed, n, L, W)
+    got = realign.smith_waterman_scores(torch.from_numpy(reads),
+                                        torch.from_numpy(windows)).numpy()
+    want = np.asarray(jax_realign.smith_waterman_scores(
+        jnp.asarray(reads), jnp.asarray(windows)))
+    pallas = np.asarray(jax_realign.smith_waterman_scores_pallas(
+        jnp.asarray(reads), jnp.asarray(windows), block_n=n, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, _plain_dp_scores(reads, windows))
+    assert got.dtype == np.int32 and got.min() == 0 and got.max() > 8
+
+
+def test_smith_waterman_plain_scoring_parameters():
+    reads, windows = _sw_rows(5, 12, 30, 50)
+    for match, mismatch, gap in ((2, -3, -2), (1, 0, -1)):
+        got = realign.smith_waterman_scores_plain(
+            torch.from_numpy(reads), torch.from_numpy(windows), match,
+            mismatch, gap).numpy()
+        want = np.asarray(jax_realign.smith_waterman_scores(
+            jnp.asarray(reads), jnp.asarray(windows), match, mismatch, gap))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fraction", [0.8, 0.35])
+def test_realign_step_matches_jax(fraction):
+    reads, windows = _sw_rows(11, 16, 64, 96)
+    length = (reads != PAD_CODE).sum(axis=1).astype(np.int32)
+    got = realign.realign_step(torch.from_numpy(reads),
+                               torch.from_numpy(windows),
+                               torch.from_numpy(length),
+                               min_score_fraction=fraction)
+    want = jax_realign.realign_step(jnp.asarray(reads), jnp.asarray(windows),
+                                    jnp.asarray(length),
+                                    min_score_fraction=fraction)
+    for key in ("seed_hit", "sw_score", "can_align"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    assert got["can_align"].any() and not got["can_align"].all()

@@ -11,12 +11,10 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parent.parent
 COUNTER = re.compile(r"\((?:remaining|total|marked)=\d+\)")
 
-# The port's CLI with jax, jaxlib and the JAX package made unimportable, and
-# with a count of the calls that reach the port's device ops, printed to
-# stderr as one "DEVICE_CALLS {...}" line.
-BLOCKED_IMPORT_WRAPPER = r"""
+# A meta-path finder that makes jax, jaxlib and the JAX package unimportable.
+BLOCKER = r"""
 import importlib.abc
-import json
+import os
 import sys
 
 
@@ -28,6 +26,26 @@ class Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Block())
+"""
+
+# The port's CLI with the blocker installed, in its own process and, through
+# a sitecustomize on PYTHONPATH, in every Python process it starts (the
+# multihost workers); with a count of the calls that reach the port's device
+# ops, printed to stderr as one "DEVICE_CALLS {...}" line. With
+# TORCH_CLI_WORKER_EXIT=<code> in the environment, every process it starts
+# exits at once with that code (a failing worker).
+BLOCKED_IMPORT_WRAPPER = BLOCKER + r"""
+import json
+import shutil
+import tempfile
+
+site = tempfile.mkdtemp(prefix="torch_cli_site_")
+with open(os.path.join(site, "sitecustomize.py"), "w") as handle:
+    handle.write(BLOCKER_SOURCE + "\n"
+                 "if os.environ.get('TORCH_CLI_WORKER_EXIT'):\n"
+                 "    os._exit(int(os.environ['TORCH_CLI_WORKER_EXIT']))\n")
+os.environ["PYTHONPATH"] = os.pathsep.join(
+    [site] + [p for p in [os.environ.get("PYTHONPATH")] if p])
 
 from arriba_tpu_torch import cli
 from arriba_tpu_torch.ops import readfilters, realign
@@ -49,13 +67,16 @@ for module, name in ((realign, "shared_kmer_mask"),
                      (realign, "accept_wavefront"),
                      (readfilters, "_low_entropy_core_packed")):
     count(module, name)
-status = cli.main(sys.argv[1:])
+try:
+    status = cli.main(sys.argv[1:])
+finally:
+    shutil.rmtree(site, ignore_errors=True)
 print("DEVICE_CALLS " + json.dumps(calls), file=sys.stderr)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "arriba_tpu"))
 print("BLOCKED_LOADED " + json.dumps(loaded), file=sys.stderr)
 sys.exit(status)
-"""
+""".replace("BLOCKER_SOURCE", repr(BLOCKER))
 
 
 def run_cli(package, args, out_dir, label, env_extra, wrapper=None):
