@@ -6,7 +6,8 @@ launches on PyTorch's current stream into an output the caller allocated,
 and raises if the launch returned a CUDA error. It adds one to
 ``launch_counts[name]`` where it launches, and nowhere else, so a run can
 show that its main path went through the kernel. The value ranges of the
-inputs (row lengths) are checked on the host where the callers build them;
+inputs (row lengths, K1's min_score) are checked on the host where the
+callers build them;
 the kernels clamp those lengths to their rows, so no value can make them
 read outside their inputs. ``accept_wavefront``, ``low_entropy`` and
 ``smith_waterman`` allocate the output and return bool verdicts (int32
@@ -54,7 +55,10 @@ def launch_accept_wavefront(reads, windows, params, out) -> None:
     entry becomes non-zero when it accepts. reads uint8 [N, L] (pad byte
     0), windows uint8 [N, W] (pad byte 1), params int32 [N, 5] =
     (read_len, win_len, min_score, seed_lo, seed_hi) with
-    0 <= read_len <= L and win_len <= W."""
+    0 <= read_len <= L, win_len <= W and min_score > read_len - 2^20. K1
+    walks only the diagonals a seed names; without a fired seed a walk
+    scores at most read_len - 2^20, so that min_score is out of its
+    reach."""
     import torch
 
     _require(reads, "reads", torch.uint8, 2)

@@ -1,29 +1,41 @@
 // K1: exact single-seed ACCEPT of filter_mismappers, for sm_90a.
 //
-// Replaces: arriba_tpu/ops/realign.py _accept_wavefront_pallas (the Pallas
-// TPU kernel, pl.pallas_call at :564) and its XLA twin
+// Replaces: arriba_tpu/ops/realign.py:444 _accept_wavefront_pallas (the
+// Pallas TPU kernel, pl.pallas_call at :564) and its XLA twin
 // _accept_wavefront_kernel (:339).
 //
-// What bounds it: integer operations. A dispatch of 512 rows x 8192 window
-// bytes x ~150 read bytes is up to ~6e8 valid cells, each needing 36
-// integer operations of the recurrence (the eligibility tests are an
-// interval of i per diagonal, the base codes one per byte), while it moves
-// only ~4 MB: operations and not memory set the bound, ~0.34 ms at the
-// H100's 67 T/s scalar rate if every cell counts. chip_smoke.py counts the
-// cells its inputs need (a walk ends at its first accept). This kernel
-// still evaluates the range tests and codes per cell.
+// What bounds it: integer operations, at the card's 32-bit integer rate
+// (64 a clock per SM on compute capability 9.0). A row is a read of up to
+// L = 192 bytes against a window of up to 8,192. Walking every diagonal
+// would be ~1.2 M cells a row at 36 operations each. But a diagonal
+// accepts only through a seed that fired
+// (accept_wavefront.cuh, "Seed lookup"), and a 150 bp read at min_score
+// 120 has only 24 read starts that may seed. So the work the data needs is
+// a scan of the row's eligible window positions (an 8-mer and a bitmap
+// test each, ~14 operations) plus full walks of the few diagonals the scan
+// names: on random windows about one in 2,700 positions names one.
+// chip_smoke.py counts both from its inputs. The bytes (~4 MB a launch)
+// stay far below the operations.
 //
-// Design: the TPU kernel rides an anti-diagonal wavefront with 128-lane
-// rolls because its carries live in vector registers across lanes. Every
-// carry depends only on the diagonal predecessor (i-1, j-1), so here one
-// thread owns one (row, diagonal delta = j - i) and walks it with i
-// increasing, all carries in registers: no cross-thread traffic, no shared
-// state besides the read, which the block stages in shared memory.
-// Neighbouring threads own neighbouring diagonals, so at each step a warp
-// reads 32 consecutive window bytes. A thread stops at its first accepting
-// cell, and a block skips its walk when the row is already accepted. The
-// row verdict is an OR: a warp ballot, then one atomicOr per warp into an
-// int32 [N] output that the caller zeroes. The result is exact whatever
+// Design: a block owns one row and one strip of up to 2,048 diagonals, so
+// a launch of 512 rows x 8,192 window bytes is 2,560 blocks. It
+//  1. clears a 65,536-bit bitmap in shared memory, stages the read, and
+//     stages the window stretch its strip's seeds can reach, as code bytes
+//     (16-byte loads where the rows are 16-byte aligned, each byte coded
+//     once);
+//  2. sets the bit of the code 8-mer of every eligible read start and keeps
+//     the 8-mers in a list indexed by start;
+//  3. steps over the stretch's window positions, one thread a position:
+//     where the position may seed and its 8-mer's bit is set, each read
+//     start with that 8-mer names the diagonal j - s. A diagonal of the
+//     strip is claimed with atomicOr in a shared bitset, so each one is
+//     queued once, whatever number of seeds name it (a poly-A row names
+//     every diagonal and costs one walk each, no more than walking all);
+//  4. drains the queue, one walk a thread, with the unchanged aw_diagonal,
+//     and stops taking walks once a walk of the block has accepted.
+// The row verdict is an OR: a warp ballot, then one atomicOr per warp into
+// an int32 [N] output that the caller zeroes; a block whose row another
+// block has already accepted skips its work. The result is exact whatever
 // order the blocks run in.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,30 +48,118 @@ constexpr int kBlock = 256;
 constexpr int kParams = 5;  // read_len, win_len, min_score, seed_lo, seed_hi
 
 __global__ void __launch_bounds__(kBlock)
-accept_wavefront_kernel(const uint8_t* __restrict__ reads,
-                        const uint8_t* __restrict__ windows,
-                        const int32_t* __restrict__ params,
-                        int32_t* __restrict__ out, int L, int W) {
-    extern __shared__ uint8_t read_s[];
+accept_seeded_kernel(const uint8_t* __restrict__ reads,
+                     const uint8_t* __restrict__ windows,
+                     const int32_t* __restrict__ params,
+                     int32_t* __restrict__ out, int L, int W, int strip,
+                     int vector_loads) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    __shared__ int n_queue;
+    __shared__ int done;
+    const arriba::AwLayout lay = arriba::aw_layout(L, strip);
+    uint32_t* bitmap = (uint32_t*)(smem + lay.bitmap);
+    uint32_t* claimed = (uint32_t*)(smem + lay.claimed);
+    uint16_t* queue = (uint16_t*)(smem + lay.queue);
+    uint16_t* seeds = (uint16_t*)(smem + lay.seeds);
+    uint8_t* read_s = smem + lay.read;
+    uint8_t* codes = smem + lay.codes;
+
     const int row = blockIdx.y;
-    for (int t = threadIdx.x; t < L; t += blockDim.x) {
-        read_s[t] = reads[(size_t)row * L + t];
+    const int tid = threadIdx.x;
+    const int32_t* p = params + (size_t)row * kParams;
+    // the caller checks 0 <= read_len <= L, win_len <= W and that min_score
+    // is out of an unseeded walk's reach on the host; the clamps keep every
+    // access inside the row whatever params hold
+    const int read_len = min(max(p[0], 0), L);
+    const int win_len = min(p[1], W);
+    const int min_score = p[2];
+    const int n_seeds = arriba::aw_seed_starts(read_len, min_score);
+    int lo, hi;
+    arriba::aw_window_span(win_len, p[3], p[4], &lo, &hi);
+    const int d_lo = -(L - 1) + (int)blockIdx.x * strip;
+    const int d_hi = min(d_lo + strip, W) - 1;
+    int jb, je;
+    arriba::aw_scan_span(d_lo, d_hi, n_seeds, lo, hi, &jb, &je);
+    if (jb > je) return;  // no seed of this row names a diagonal of the strip
+
+    // 1. clear, stage
+    for (int w = tid; w < arriba::AW_BITMAP_WORDS; w += kBlock) bitmap[w] = 0;
+    for (int w = tid; w < (strip + 31) / 32; w += kBlock) claimed[w] = 0;
+    const uint8_t* read = reads + (size_t)row * L;
+    for (int t = tid; t < read_len; t += kBlock) read_s[t] = read[t];
+    const uint8_t* window = windows + (size_t)row * W;
+    const int end = je + arriba::AW_SEED;  // last byte read is je + 7
+    const int base = vector_loads ? jb & ~15 : jb;
+    if (vector_loads) {
+        // rows start 16-byte aligned and W % 16 == 0, so the rounded-up
+        // end stays inside the row (end <= win_len - 2 < W)
+        const int n16 = (end - base + 15) >> 4;
+        for (int v = tid; v < n16; v += kBlock) {
+            const uint4 raw = *(const uint4*)(window + base + 16 * v);
+            const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+            uint32_t coded[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                uint32_t word = 0;
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    word |= (uint32_t)arriba::aw_code_byte(
+                                (in[q] >> (8 * b)) & 0xff) << (8 * b);
+                }
+                coded[q] = word;
+            }
+            *(uint4*)(codes + 16 * v) =
+                make_uint4(coded[0], coded[1], coded[2], coded[3]);
+        }
+    } else {
+        for (int t = tid; t < end - base; t += kBlock) {
+            codes[t] = (uint8_t)arriba::aw_code_byte(window[base + t]);
+        }
+    }
+    if (tid == 0) {
+        n_queue = 0;
+        done = *(volatile const int32_t*)(out + row) != 0;
+    }
+    __syncthreads();
+    if (done) return;  // another block accepted this row (uniform here)
+
+    // 2. the read's seeds
+    for (int s = tid; s < n_seeds; s += kBlock) {
+        const int kmer = arriba::aw_kmer_raw(read_s + s);
+        seeds[s] = (uint16_t)kmer;
+        atomicOr(bitmap + (kmer >> 5), 1u << (kmer & 31));
     }
     __syncthreads();
 
-    const int32_t* p = params + (size_t)row * kParams;
-    // the caller checks 0 <= read_len <= L and win_len <= W on the host;
-    // the clamps keep every access inside the row whatever params hold
-    const int read_len = min(max(p[0], 0), L);
-    const int win_len = min(p[1], W);
-    const int delta = (int)(blockIdx.x * blockDim.x + threadIdx.x) - (L - 1);
+    // 3. window scan, claim each named diagonal once
+    for (int j = jb + tid; j <= je; j += kBlock) {
+        const int kmer = arriba::aw_window_seed(codes + (j - base), bitmap);
+        if (kmer < 0) continue;
+        int s_lo, s_hi;
+        arriba::aw_seed_span(j, d_lo, d_hi, n_seeds, &s_lo, &s_hi);
+        for (int s = s_lo; s <= s_hi; ++s) {
+            if (seeds[s] != kmer) continue;
+            const int bit = j - s - d_lo;
+            const uint32_t mask = 1u << (bit & 31);
+            if (atomicOr(claimed + (bit >> 5), mask) & mask) continue;
+            queue[atomicAdd(&n_queue, 1)] = (uint16_t)bit;
+        }
+    }
+
+    // 4. walk the queue
+    __syncthreads();
+    volatile int* row_done = &done;
     bool accept = false;
-    if (delta <= W - 1 && *(volatile const int32_t*)(out + row) == 0) {
-        accept = arriba::aw_diagonal(read_s, windows + (size_t)row * W, delta,
-                                     read_len, win_len, p[2], p[3], p[4]);
+    const int n = n_queue;
+    for (int q = tid; q < n && !*row_done; q += kBlock) {
+        if (arriba::aw_diagonal(read_s, window, d_lo + queue[q], read_len,
+                                win_len, min_score, p[3], p[4])) {
+            accept = true;
+            *row_done = 1;
+        }
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, accept);
-    if ((threadIdx.x & 31) == 0 && ballot != 0) atomicOr(out + row, 1);
+    if ((tid & 31) == 0 && ballot != 0) atomicOr(out + row, 1);
 }
 
 }  // namespace
@@ -67,15 +167,26 @@ accept_wavefront_kernel(const uint8_t* __restrict__ reads,
 extern "C" {
 
 // reads uint8 [n, L], windows uint8 [n, W], params int32 [n, 5], out int32
-// [n] zeroed by the caller; 0 <= read_len <= L and win_len <= W per row.
+// [n] zeroed by the caller; per row 0 <= read_len <= L, win_len <= W and
+// min_score > read_len + AW_NEG (accept_wavefront.cuh, "Seed lookup").
 int arriba_accept_wavefront(const void* reads, const void* windows,
                             const void* params, void* out, int n, int L,
                             int W, void* stream) {
-    if (n == 0) return 0;
-    const dim3 grid((L + W - 1 + kBlock - 1) / kBlock, n);
-    accept_wavefront_kernel<<<grid, kBlock, L, (cudaStream_t)stream>>>(
+    int strip, n_strips;
+    arriba::aw_strips(L, W, &strip, &n_strips);
+    if (n == 0 || n_strips == 0) return 0;
+    const int smem = arriba::aw_layout(L, strip).bytes;
+    const int vector_loads = W % 16 == 0 && ((uintptr_t)windows & 15) == 0;
+    if (smem > 48 * 1024) {
+        const cudaError_t code = cudaFuncSetAttribute(
+            accept_seeded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (code != cudaSuccess) return (int)code;
+    }
+    accept_seeded_kernel<<<dim3(n_strips, n), kBlock, smem,
+                           (cudaStream_t)stream>>>(
         (const uint8_t*)reads, (const uint8_t*)windows,
-        (const int32_t*)params, (int32_t*)out, L, W);
+        (const int32_t*)params, (int32_t*)out, L, W, strip, vector_loads);
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Per-cell math of the exact single-seed ACCEPT of filter_mismappers.
+// Per-cell math and per-row seed lookup of the exact single-seed ACCEPT of
+// filter_mismappers.
 //
 // Shared by the CUDA kernel (accept_wavefront.cu) and a CPU build of the
 // same functions (tests/test_torch_kernel_math.py), so the code the kernel
@@ -101,8 +102,9 @@ __host__ __device__ inline bool aw_step(AcceptCarry* c, int read_byte,
     return accept;
 }
 
-// Walk the valid cells of diagonal delta = j - i of one row; true as soon as
-// a cell accepts.
+// Walk the valid cells of diagonal delta = j - i of one row, from its first
+// valid cell (b and bsave need the left context); true as soon as a cell
+// accepts.
 __host__ __device__ inline bool aw_diagonal(const uint8_t* read,
                                             const uint8_t* window, int delta,
                                             int read_len, int win_len,
@@ -120,6 +122,132 @@ __host__ __device__ inline bool aw_diagonal(const uint8_t* read,
         if (aw_step(&c, read[i], w, eligible, min_score)) return true;
     }
     return false;
+}
+
+// ---------------------------------------------------------------------------
+// Seed lookup: which diagonals can accept at all.
+//
+// A walk's score starts at AW_NEG, never falls below it, and jumps only
+// through a fired seed; without one it gains at most 1 a cell, so it stays
+// at most AW_NEG + read_len. So where min_score > read_len + AW_NEG (every
+// min_score >= 0 included), a diagonal accepts only if a seed fires on it. A
+// seed fires only on 8 code matches from an eligible start (i, j). So the
+// diagonals worth walking are {j - s}: s an eligible read start, j an
+// eligible window position (in [lo, hi], window[j] != 'N'), and the code
+// 8-mers of the read at s and of the window at j equal. That set holds
+// every firing diagonal (it ignores whether (s, j) starts a streak), and
+// walking a diagonal in full gives aw_diagonal's exact answer.
+
+constexpr int AW_CODE_N = 4;           // code byte flag: the raw byte is 'N'
+constexpr int AW_BITMAP_WORDS = 2048;  // 65,536 one-bit 8-mer slots
+constexpr int AW_STRIP = 2048;         // most diagonals one block owns
+
+// code byte of a raw byte: kmer code in bits 0-1, AW_CODE_N for 'N'
+__host__ __device__ inline int aw_code_byte(int byte) {
+    return aw_kmer_code(byte) | (byte == 'N' ? AW_CODE_N : 0);
+}
+
+// 16-bit code 8-mer of the 8 raw bytes at p
+__host__ __device__ inline int aw_kmer_raw(const uint8_t* p) {
+    int kmer = 0;
+    for (int k = 0; k < AW_SEED; ++k) kmer = (kmer << 2) | aw_kmer_code(p[k]);
+    return kmer;
+}
+
+// 16-bit code 8-mer of the 8 code bytes at c (the same value as
+// aw_kmer_raw of the raw bytes they came from)
+__host__ __device__ inline int aw_kmer_coded(const uint8_t* c) {
+    int kmer = 0;
+    for (int k = 0; k < AW_SEED; ++k) kmer = (kmer << 2) | (c[k] & 3);
+    return kmer;
+}
+
+// number of eligible read starts: s = 0 .. n-1 with s + 8 < read_len and
+// 2 s <= read_len + 16 - min_score (aw_eligible's tests on i)
+__host__ __device__ inline int aw_seed_starts(int read_len, int min_score) {
+    const int x = read_len + 16 - min_score;
+    if (x < 0) return 0;
+    const int n = x / 2 + 1 < read_len - AW_SEED ? x / 2 + 1
+                                                 : read_len - AW_SEED;
+    return n > 0 ? n : 0;
+}
+
+// eligible window positions [*lo, *hi] of a row (aw_eligible's tests on j
+// other than the 'N' test); empty when *lo > *hi
+__host__ __device__ inline void aw_window_span(int win_len, int seed_lo,
+                                               int seed_hi, int* lo,
+                                               int* hi) {
+    *lo = seed_lo > 0 ? seed_lo : 0;
+    *hi = seed_hi < win_len - 10 ? seed_hi : win_len - 10;
+}
+
+// The diagonals delta in [-(L - 1), W - 1] cut into strips of *strip (a
+// multiple of 32, at most AW_STRIP), *n_strips of them; strip k owns
+// [-(L - 1) + k * strip, min(-(L - 1) + (k + 1) * strip, W) - 1].
+__host__ __device__ inline void aw_strips(int L, int W, int* strip,
+                                          int* n_strips) {
+    const int d = L + W - 1;
+    if (d <= 0) {
+        *strip = 32;
+        *n_strips = 0;
+        return;
+    }
+    const int n = (d + AW_STRIP - 1) / AW_STRIP;
+    *strip = ((d + n - 1) / n + 31) / 32 * 32;
+    *n_strips = (d + *strip - 1) / *strip;
+}
+
+// Window positions [*jb, *je] whose seeds can name a diagonal of
+// [d_lo, d_hi]: delta = j - s with 0 <= s < n_seeds, inside [lo, hi];
+// empty (*jb > *je) when the row has no seeds
+__host__ __device__ inline void aw_scan_span(int d_lo, int d_hi, int n_seeds,
+                                             int lo, int hi, int* jb,
+                                             int* je) {
+    *jb = d_lo > lo ? d_lo : lo;
+    const int top = d_hi + n_seeds - 1;
+    *je = n_seeds <= 0 ? *jb - 1 : top < hi ? top : hi;
+}
+
+// The 8-mer at window position j (its code bytes at c) if j may seed and
+// the read has that 8-mer among its eligible starts (bitmap), else -1
+__host__ __device__ inline int aw_window_seed(const uint8_t* c,
+                                              const uint32_t* bitmap) {
+    if (c[0] & AW_CODE_N) return -1;
+    const int kmer = aw_kmer_coded(c);
+    return (bitmap[kmer >> 5] >> (kmer & 31)) & 1u ? kmer : -1;
+}
+
+// Read starts [*s_lo, *s_hi] that a hit at window position j may pair
+// with: delta = j - s inside [d_lo, d_hi], 0 <= s < n_seeds
+__host__ __device__ inline void aw_seed_span(int j, int d_lo, int d_hi,
+                                             int n_seeds, int* s_lo,
+                                             int* s_hi) {
+    *s_lo = j - d_hi > 0 ? j - d_hi : 0;
+    *s_hi = j - d_lo < n_seeds - 1 ? j - d_lo : n_seeds - 1;
+}
+
+// Shared-memory layout of one block (byte offsets, 16-aligned pieces):
+// the 8-mer bitmap, the claimed-diagonal bitset, the walk queue (diagonal
+// offsets into the strip), the read's seed 8-mers, the read bytes and the
+// window stretch as code bytes.
+struct AwLayout {
+    int bitmap, claimed, queue, seeds, read, codes, bytes;
+};
+
+__host__ __device__ inline int aw_align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline AwLayout aw_layout(int L, int strip) {
+    AwLayout s;
+    s.bitmap = 0;
+    s.claimed = s.bitmap + 4 * AW_BITMAP_WORDS;
+    s.queue = s.claimed + aw_align16(4 * ((strip + 31) / 32));
+    s.seeds = s.queue + aw_align16(2 * strip);
+    s.read = s.seeds + aw_align16(2 * L);
+    s.codes = s.read + aw_align16(L);
+    // the staged stretch starts up to 15 bytes before the first scanned
+    // position and ends 8 bytes past the last, rounded up to 16
+    s.bytes = s.codes + aw_align16(strip + L + 32);
+    return s;
 }
 
 }  // namespace arriba

@@ -14,7 +14,9 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
    mismatch, right extension at +1/-1 with the 4-consecutive-mismatch
    break, the outer-loop seed bound and the k-mer-index range) evaluated
    per (read, window) row. CUDA tensors run the hand-written kernel K1
-   (kernels/csrc/accept_wavefront.cu); CPU tensors run
+   (kernels/csrc/accept_wavefront.cu, which looks the read's eligible
+   8-mers up in the window and walks only the diagonals they name); CPU
+   tensors run
    `accept_wavefront_plain`, a step-for-step twin of the JAX package's
    wavefront. A device ACCEPT is sound (align() necessarily accepts);
    splice/deletion recursion chains stay host-only, so a device reject
@@ -380,6 +382,13 @@ def accept_pairs(read_seqs, window_views, min_scores,
     from ..seq import reverse_complement_str
 
     max_read = max(len(seq) for seq in read_seqs)
+    if (torch.device(device).type == "cuda"
+            and min(min_scores) <= _NEG + max_read):
+        # K1 walks only the diagonals a seed names; without a fired seed a
+        # walk scores at most _NEG + read_len, so a min_score that low could
+        # accept on a diagonal K1 never walks
+        raise ValueError(f"accept_pairs takes min_scores > {_NEG} + the "
+                         f"read length on a CUDA device")
     L = -(-max(16, max_read) // 64) * 64
     stride = window_chunk - 2 * L
     assert stride > 0
@@ -416,8 +425,9 @@ def accept_pairs(read_seqs, window_views, min_scores,
         pairs = np.fromiter((row[0] for row in batch), np.int64, len(batch))
         reads = [row[1] for row in batch]
         windows = [row[2] for row in batch]
-        # read_len <= L and win_len <= window_chunk by construction: the
-        # row lengths K1 requires hold without a check on the card
+        # read_len <= L and win_len <= window_chunk by construction, and
+        # min_score checked above: what K1 requires of a row holds without a
+        # check on the card
         params = np.zeros((len(batch), 5), np.int32)
         params[:, 2] = 2 ** 20   # padded rows: unreachable min_score
         params[:len(batch)] = [row[3] for row in batch]

@@ -2,21 +2,29 @@
 """Build and drive the PyTorch / CUDA port (arriba_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k1-against CSRC_DIR [CSRC_DIR ...]
 
-Phases (any failure exits non-zero, and no result line is printed):
+The second form only times K1 built from other sources against this
+checkout's (compare_k1). Phases of the first (any failure exits non-zero, and no result line is printed):
 
-0. The card: ``nvidia-smi`` name and power limit, torch's device name.
+0. The card: ``nvidia-smi`` name and power limit, maximum SM clock,
+   torch's device name.
 1. Build: the native engine (g++, from native/*.cpp) and the CUDA kernels
    (nvcc for sm_90a, from arriba_tpu_torch/kernels/csrc), with the seconds
    each took.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with exact equality: K1 (accept wavefront) at
-   512 rows x 192 read bytes x 8192 window bytes, K2 (low-entropy scan) at
-   131,072 reads x 150 codes, K3 (Smith-Waterman scores) at 65,536 rows x
-   256 read codes x 256 window codes. Kernel time is the median of
-   CUDA-event timed launches after a warm-up, inputs checked and output
-   allocated ahead; the bound is the larger of bytes over the memory rate
-   and the operations the algorithm needs over the peak scalar rate.
+   512 rows x 192 read bytes x 8192 window bytes, on its adversarial rows
+   (ACCEPT_KINDS) and on two low-complexity batches at that shape
+   (accept_cases); K2
+   (low-entropy scan) at 131,072 reads x 150 codes; K3 (Smith-Waterman
+   scores) at 65,536 rows x 256 read codes x 256 window codes. Kernel time
+   is the median of CUDA-event timed launches after a warm-up, inputs
+   checked and output allocated ahead; the bound is the larger of bytes
+   over the memory rate and the operations the algorithm needs over the
+   card's 32-bit integer rate. K1's operations are counted from its inputs
+   (accept_work: window positions scanned, cells walked on the candidate
+   diagonals).
 3. The main path: the genome-scale 150 bp sample (bench_samples.build_tier2)
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
@@ -57,16 +65,24 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 
-# published peak rates of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): HBM3 bandwidth, and 67 TFLOP/s float32 outside the tensor cores.
-# The data sheet gives no integer rate; its scalar float32 rate stands in
-# as the peak for the kernels' integer operations, so the bound stays a
-# lower bound on the time.
+# peak rates of one H100 SXM at its 700 W limit: HBM3 bandwidth (NVIDIA's
+# data sheet), and the 32-bit integer rate the kernels' work runs at: 64
+# integer adds, compares, min/max, logic operations or shifts a clock per
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput table,
+# compute capability 9.0) x 132 SMs x the H100 SXM's 1,980 MHz maximum SM
+# clock, 16.7 T/s. (The data sheet's 67 TFLOP/s counts float32 fused
+# multiply-adds, 4x the integer rate, and is no bound for integer work.)
 MEMORY_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+SM_CLOCK_HZ = 1.98e9
+INT_OPS_PER_S = 64 * 132 * SM_CLOCK_HZ
 # integer operations the algorithm needs per unit of work; loads and stores
 # are counted as bytes, tests fixed per read or per diagonal are hoisted
 # out, and base codes are computed once per byte.
+# K1, one window position of a row's seed scan (its eligible range is fixed
+# per row):
+AW_SCAN_OPS = {"base code and 'N' flag": 4, "'N' test": 1,
+               "rolling 8-mer": 3, "bitmap word and bit": 3, "hit test": 1,
+               "loop": 2}
 # K1, one valid (read, window) cell of a diagonal walk:
 AW_OPS = {"byte match": 1, "code match": 1, "streak start": 2,
           "seed eligibility (i in the diagonal's interval, window not N)": 4,
@@ -80,9 +96,13 @@ AW_OPS = {"byte match": 1, "code match": 1, "streak start": 2,
 LE_OPS = {"code extract": 2, "3-mer shift": 3, "selection": 5,
           "three counters": 3, "three threshold tests": 5,
           "selected / crossed branches": 2, "loop": 2}
-# K3, one valid (read, window) cell (a read and a window byte both not PAD):
+# K3, one valid (read, window) cell (a read and a window byte both not PAD),
+# counted as source operations: the kernel's DPX __viaddmax_s32_relu does
+# an add, a max and the floor at 0 in one instruction, so the card may
+# issue fewer than these, and K3's share of its bound is an upper estimate
 SW_OPS = {"match test and select": 2, "three candidate adds": 3,
           "max of four": 3, "running best": 1}
+AW_OPS_PER_POSITION = sum(AW_SCAN_OPS.values())  # 14
 AW_OPS_PER_CELL = sum(AW_OPS.values())          # 36
 LE_OPS_PER_POSITION = sum(LE_OPS.values())      # 22
 SW_OPS_PER_CELL = sum(SW_OPS.values())          # 9
@@ -119,7 +139,7 @@ def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True) -> float:
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
     byte_ms = n_bytes / MEMORY_BYTES_PER_S * 1e3
-    op_ms = n_ops / SCALAR_OPS_PER_S * 1e3
+    op_ms = n_ops / INT_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -162,6 +182,266 @@ def accept_inputs(seed: int = 17, N: int = 512, L: int = 192, W: int = 8192,
             hi = lo + int(rng.integers(0, win_len // 2))
         params[row] = (read_len, win_len, int(0.8 * read_len + 0.5), lo, hi)
     return reads, windows, params
+
+
+# K1's adversarial rows by row % 14, and the verdict each must give
+ACCEPT_KINDS = (
+    ("poly-A read, poly-A window", True),
+    ("poly-A read, N-rich window (A and N share code 3)", False),
+    ("poly-A read, (A8 G4)* window: every diagonal a candidate", False),
+    ("(AC)* read, (AC)* window", True),
+    ("embedded copy, window 'N' at its seed start", False),
+    ("only the read suffix from the last eligible start s_max", True),
+    ("only the read suffix from s_max + 1", False),
+    ("embedded copy, seed_lo one past its start", False),
+    ("embedded copy, seed_hi 3 past its start", True),
+    ("embedded copy, seed_lo 3 past its start", False),
+    ("read_len 8", False),
+    ("read_len 9, embedded", True),
+    ("win_len 9", False),
+    ("win_len 10, read 9 at its start", True),
+)
+
+
+def accept_adversarial_inputs(seed: int = 29, N: int = 56, L: int = 192,
+                              W: int = 8192):
+    """K1's adversarial rows (ACCEPT_KINDS, cycled over the N rows) at
+    reads padded with byte 0 to L and windows padded with byte 1 to W:
+    low-complexity rows, 'N' at a seed start, seeds at and past the last
+    eligible read start, streaks cut by seed_lo / seed_hi, reads and
+    windows too short to seed. Read length min(150, L - 8), min_score as
+    accept_pairs computes it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.frombuffer(b"ACGT", np.uint8)
+    reads = np.zeros((N, L), np.uint8)
+    windows = np.ones((N, W), np.uint8)
+    params = np.zeros((N, 5), np.int32)
+
+    def score(n):
+        return int(0.8 * n + 0.5)
+
+    for row in range(N):
+        kind = row % len(ACCEPT_KINDS)
+        read_len = min(150, L - 8)
+        win_len = W - int(rng.integers(0, 64))
+        window = base[rng.integers(0, 4, win_len)]
+        read = base[rng.integers(0, 4, read_len)]
+        lo, hi = 0, win_len + L - 1
+        start = int(rng.integers(16, win_len - read_len - 16))
+        if kind == 0:
+            read[:] = ord("A")
+            window[:] = ord("A")
+        elif kind == 1:
+            read[:] = ord("A")
+            window = np.where(rng.random(win_len) < 0.25, ord("A"),
+                              ord("N")).astype(np.uint8)
+        elif kind == 2:
+            read[:] = ord("A")
+            window = np.resize(np.frombuffer(b"AAAAAAAAGGGG", np.uint8),
+                               win_len)
+        elif kind == 3:
+            read = np.resize(np.frombuffer(b"AC", np.uint8), read_len)
+            window = np.resize(np.frombuffer(b"AC", np.uint8), win_len)
+        elif kind in (4, 7, 8, 9):
+            window[start:start + read_len] = read
+            if kind == 4:
+                read[0] = ord("A")
+                window[start] = ord("N")
+            elif kind == 7:
+                lo = start + 1
+            elif kind == 8:
+                hi = start + 3
+            else:
+                lo = start + 3
+        elif kind in (5, 6):
+            ms = score(read_len)
+            s = min((read_len + 16 - ms) // 2 + 1, read_len - 8) - 1
+            s += kind - 5
+            window[start:start + read_len - s] = read[s:]
+            # the cell before the suffix is a code mismatch, so the streak
+            # starts at s
+            window[start - 1] = ord("G") if read[s - 1] == ord("T") else \
+                ord("T")
+        elif kind in (10, 11):
+            read_len = kind - 2
+            read = read[:read_len]
+            window[start:start + read_len] = read
+        else:
+            win_len = kind - 3
+            window = window[:win_len]
+            read_len = 9
+            read = window[:9].copy()
+        reads[row, :read_len] = read
+        windows[row, :win_len] = window
+        params[row] = (read_len, win_len, score(read_len), lo, hi)
+    return reads, windows, params
+
+
+def accept_work(reads, windows, params) -> dict:
+    """The work K1's seed lookup needs on these inputs, counted with plain
+    torch ops on their device: the window positions in the eligible range
+    of the rows that have an eligible read start, the candidate diagonals
+    (an eligible window 8-mer equal to the 8-mer of an eligible read start
+    names j - s), and the cells walked on them, from each diagonal's first
+    valid cell to its first accepting cell or its end. The walks repeat
+    aw_step of kernels/csrc/accept_wavefront.cuh over all candidates at
+    once (a change to aw_step must be made here too), so the rows with an
+    accepting candidate come out too, for a check against the plain
+    version."""
+    import torch
+
+    N, L = reads.shape
+    W = windows.shape[1]
+    device = reads.device
+    neg = -(1 << 20)
+    p = params.long()
+    read_len = p[:, 0].clamp(0, L)
+    win_len = p[:, 1].clamp(max=W)
+    min_score = p[:, 2]
+    x = read_len + 16 - min_score
+    n_seeds = torch.where(x >= 0, torch.minimum(x // 2 + 1, read_len - 8),
+                          0).clamp(min=0)
+    lo = p[:, 3].clamp(min=0)
+    hi = torch.minimum(p[:, 4], win_len - 10)
+    positions = int(torch.where(n_seeds > 0, (hi - lo + 1).clamp(min=0),
+                                0).sum())
+
+    def codes(raw):
+        return torch.where(raw == ord("T"), 0, torch.where(
+            raw == ord("G"), 1, torch.where(raw == ord("C"), 2, 3)))
+
+    def kmers(c):
+        n = c.shape[1] - 7
+        k = torch.zeros(c.shape[0], n, dtype=torch.int64, device=device)
+        for t in range(8):
+            k = k * 4 + c[:, t:t + n]
+        return k
+
+    read_kmers = kmers(codes(reads.long()))
+    window_kmers = kmers(codes(windows.long()))
+    j = torch.arange(W - 7, device=device)[None, :]
+    eligible_j = (j >= lo[:, None]) & (j <= hi[:, None]) & (
+        windows[:, :W - 7] != ord("N"))
+    candidates = torch.zeros(N, L + W - 1, dtype=torch.bool, device=device)
+    for s in range(int(n_seeds.max())):
+        hit = (eligible_j & (window_kmers == read_kmers[:, s:s + 1])
+               & (s < n_seeds)[:, None])
+        candidates[:, L - 1 - s:L - 1 - s + W - 7] |= hit
+    rows, index = candidates.nonzero(as_tuple=True)
+    delta = index - (L - 1)
+    rl, wl, ms = read_len[rows], win_len[rows], min_score[rows]
+    lo_r, hi_r = lo[rows], torch.minimum(p[rows, 4], wl - 10)
+    i0 = (-delta).clamp(min=0)
+    i1 = torch.minimum(rl, wl - delta)
+
+    zeros = torch.zeros_like(delta)
+    a, b, q, bsave, cons = zeros, zeros, zeros, zeros, zeros
+    sc = torch.full_like(delta, neg)
+    sok = torch.zeros_like(delta, dtype=torch.bool)
+    first = torch.full_like(delta, -1)
+    for i in range(L):
+        jj = i + delta
+        valid = (i >= i0) & (i < i1) & (first < 0)
+        if not bool(valid.any()):
+            continue
+        rb = reads[rows, i].long()
+        wb = windows[rows, jj.clamp(0, W - 1)].long()
+        elig = ((i + 8 < rl) & (2 * i <= rl + 16 - ms) & (jj >= lo_r)
+                & (jj <= hi_r) & (wb != ord("N")))
+        m = rb == wb
+        cm = codes(rb) == codes(wb)
+        starts = cm & (q == 0)
+        sok_n = cm & torch.where(starts, elig, sok)
+        bsave_n = torch.where(cm, torch.where(starts, b, bsave), 0)
+        q_n = torch.where(cm, q + 1, 0)
+        fired = (q_n == 8) & sok_n
+        candidate = 8 + bsave_n
+        cons_n = torch.where(m, 0, cons + 1)
+        step = torch.where(cons_n >= 4, neg, torch.where(m, sc + 1, sc - 1))
+        accept = (m & (step >= ms)) | (fired & (candidate >= ms))
+        updates = ((a, torch.where(m, a + 1, 0)), (b, torch.where(m, b + 1, a)),
+                   (q, q_n), (bsave, bsave_n), (cons, cons_n),
+                   (sc, torch.maximum(step, torch.where(fired, candidate,
+                                                        neg))),
+                   (sok, sok_n))
+        a, b, q, bsave, cons, sc, sok = (torch.where(valid, new, old)
+                                         for old, new in updates)
+        first = torch.where(valid & accept, i, first)
+    cells = int(torch.where(first >= 0, first - i0 + 1,
+                            (i1 - i0).clamp(min=0)).sum())
+    accepting = torch.zeros(N, dtype=torch.bool, device=device)
+    accepting[rows[first >= 0]] = True
+    return {"positions": positions, "candidates": int(len(rows)),
+            "cells": cells, "accepting": accepting}
+
+
+def accept_cases() -> dict:
+    """K1's phase-2 inputs by name: the main path's shape (accept_inputs),
+    the adversarial rows (accept_adversarial_inputs), and two
+    low-complexity batches at the main shape, where every row or every 4th
+    row (the random rejects) is a poly-A read against a window of A8 G4
+    repeats (ACCEPT_KINDS[2]): a rejecting row on which every diagonal is a
+    candidate."""
+    main = accept_inputs()
+    cases = {"main": main, "adversarial": accept_adversarial_inputs()}
+    low = [x[2] for x in accept_adversarial_inputs(N=len(ACCEPT_KINDS))]
+    for name, every in (("low_complexity", 1), ("mixed", 4)):
+        arrays = [x.copy() for x in main]
+        for x, row in zip(arrays, low):
+            x[every - 1::every] = row
+        cases[name] = arrays
+    return cases
+
+
+def check_accept(name: str, arrays) -> tuple:
+    """K1 through realign.accept_wavefront against its plain version on one
+    case, the launch's median ms, and its bounds: the work the seed lookup
+    needs (accept_work) and, as PERF.md's kernel table carries it across
+    designs, every diagonal walked (a row that accepts needs as little as
+    one diagonal, read_len cells; one that does not every valid cell).
+    Returns (summary, the plain verdicts)."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    reads, windows, params = arrays
+    r, w, p = (torch.from_numpy(x).to("cuda") for x in arrays)
+    got = realign.accept_wavefront(r, w, p)
+    want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
+    err = int((got.int() - want.int()).abs().max())
+    if err != 0:
+        raise SystemExit(f"K1 disagrees with its plain version ({name})")
+    # the launch alone: K1 needs its output zeroed, which stays untimed
+    out = torch.zeros(len(reads), dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: kernels.launch_accept_wavefront(r, w, p, out), 20,
+                 setup=out.zero_)
+    work = accept_work(r, w, p)
+    if not torch.equal(work["accepting"], want):
+        raise SystemExit(f"K1's candidate diagonals do not give the plain "
+                         f"version's verdicts ({name})")
+    n_bytes = reads.nbytes + windows.nbytes + params.nbytes + 4 * len(reads)
+    bound_ms, bound_by = bound(n_bytes, work["positions"] * AW_OPS_PER_POSITION
+                               + work["cells"] * AW_OPS_PER_CELL)
+    read_len, win_len = (params[:, c].astype(np.int64) for c in (0, 1))
+    cells = float(np.where(want.cpu().numpy(), read_len,
+                           read_len * win_len).sum())
+    walk_all_ms, _ = bound(n_bytes, cells * AW_OPS_PER_CELL)
+    summary = {"rows": len(reads), "accepting": int(want.sum()),
+               "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "walk_all_bound_ms": walk_all_ms,
+               "positions": work["positions"],
+               "candidates": work["candidates"], "cells": work["cells"]}
+    log(f"K1 {name}: {summary['accepting']}/{len(reads)} rows accept, equal "
+        f"to the plain version; {ms:.4f} ms a launch; "
+        f"{work['positions']} window positions scanned, "
+        f"{work['candidates']} candidate diagonals, {work['cells']} cells "
+        f"walked; bound {bound_ms:.4f} ms ({bound_by}), every diagonal "
+        f"{walk_all_ms:.4f} ms")
+    return summary, want
 
 
 def low_entropy_inputs(seed: int = 3, n: int = 131072, L: int = 150):
@@ -233,42 +513,35 @@ def check_kernels() -> list:
     cuda = torch.device("cuda")
     records = []
 
-    # K1: accept wavefront
-    reads, windows, params = accept_inputs()
-    r, w, p = (torch.from_numpy(x).to(cuda) for x in (reads, windows, params))
-    got = realign.accept_wavefront(r, w, p)
-    torch.cuda.synchronize()
-    want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
-    err = int((got.int() - want.int()).abs().max())
-    n_accept = int(want.sum())
-    log(f"K1 accept_wavefront: {n_accept}/{len(reads)} rows accept, "
-        f"max |kernel - plain| = {err}")
-    if err != 0 or not 0 < n_accept < len(reads):
-        raise SystemExit("K1 disagrees with its plain version or the input "
-                         "does not exercise both verdicts")
-    # the launch alone: K1 needs its output zeroed, which stays untimed
-    out = torch.zeros(len(reads), dtype=torch.int32, device=cuda)
-    ms = cuda_ms(lambda: kernels.launch_accept_wavefront(r, w, p, out), 20,
-                 setup=out.zero_)
-    # the plain version takes seconds at this shape: one call, warmed up by
-    # the comparison above
+    # K1: accept wavefront, on each of its phase-2 cases
+    inputs = accept_cases()
+    cases, verdicts = {}, {}
+    for name, arrays in inputs.items():
+        cases[name], verdicts[name] = check_accept(name, arrays)
+    main = cases["main"]
+    if not 0 < main["accepting"] < main["rows"]:
+        raise SystemExit("K1's main input does not exercise both verdicts")
+    rows = torch.arange(cases["adversarial"]["rows"]) % len(ACCEPT_KINDS)
+    expected = torch.tensor([verdict for _, verdict in ACCEPT_KINDS])[rows]
+    if not torch.equal(verdicts["adversarial"].cpu(), expected):
+        raise SystemExit("the adversarial rows do not give their verdicts")
+    if cases["low_complexity"]["accepting"] != 0:
+        raise SystemExit("a low-complexity row accepts")
+    # the plain version takes seconds at the main shape: one call, warmed
+    # up by the comparisons above
+    r, w, p = (torch.from_numpy(x).to(cuda) for x in inputs["main"])
     plain_ms = cuda_ms(
         lambda: realign.accept_wavefront_plain(r, w, *p.unbind(dim=1)), 1,
         warm_up=False)
-    # each diagonal's walk ends at its first accepting cell: a row that
-    # accepts needs as little as one diagonal (read_len cells), one that
-    # does not needs every valid cell
-    read_len, win_len = (params[:, c].astype(np.int64) for c in (0, 1))
-    cells = float(np.where(want.cpu().numpy(), read_len,
-                           read_len * win_len).sum())
-    n_bytes = reads.nbytes + windows.nbytes + params.nbytes + 4 * len(reads)
-    bound_ms, bound_by = bound(n_bytes, cells * AW_OPS_PER_CELL)
     records.append({
         "name": "accept_wavefront", "route": "cuda",
         "source": "arriba_tpu_torch/kernels/csrc/accept_wavefront.cu",
         "replaces": "arriba_tpu/ops/realign.py:444",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        "max_abs_err": max(case["max_abs_err"] for case in cases.values()),
+        "ms": main["ms"], "plain_ms": plain_ms,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "walk_all_bound_ms": main["walk_all_bound_ms"],
+        "cases": cases})
 
     # K2: low-entropy scan over the 2-bit-packed codes the cascade ships
     codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs()
@@ -558,6 +831,74 @@ def check_sharded(state, n: int) -> int:
     return launches["smith_waterman"]
 
 
+def compare_k1(sources: list) -> None:
+    """K1 built from each csrc directory in sources (an accept_wavefront.cu
+    with this checkout's C entry point, such as an earlier commit's) against
+    this checkout's K1 on the main, low-complexity and mixed cases of phase
+    2. Every build must give the plain version's verdicts. Each case times
+    the launch (median of 20) in the order this checkout, the sources, the
+    sources reversed, this checkout, and one JSON line gives the mean of
+    each build's two times."""
+    import ctypes
+
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.kernels import build
+    from arriba_tpu_torch.ops import realign
+
+    symbol, argtypes = build._SIGNATURES["accept_wavefront"]
+    procs = []
+    for k, source in enumerate(sources):
+        target = REPO / "build" / "k1_against" / str(k) / "libk1.so"
+        target.parent.mkdir(parents=True, exist_ok=True)
+        procs.append((source, target, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
+             str(pathlib.Path(source) / "accept_wavefront.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    launches = {"this checkout": kernels.launch_accept_wavefront}
+    for source, target, proc in procs:
+        report = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {source}:\n{report[-4000:]}")
+        log(f"built {source}: " + "; ".join(
+            line.strip() for line in report.splitlines()
+            if "registers" in line))
+        entry = getattr(ctypes.CDLL(str(target)), symbol)
+        entry.argtypes, entry.restype = argtypes, ctypes.c_int
+
+        def launch(r, w, p, out, entry=entry, source=source):
+            code = entry(r.data_ptr(), w.data_ptr(), p.data_ptr(),
+                         out.data_ptr(), r.shape[0], r.shape[1], w.shape[1],
+                         torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise SystemExit(f"K1 from {source} failed to launch ({code})")
+        launches[source] = launch
+
+    result = {}
+    for name, arrays in accept_cases().items():
+        if name == "adversarial":
+            continue
+        r, w, p = (torch.from_numpy(x).to("cuda") for x in arrays)
+        want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
+        out = torch.zeros(len(r), dtype=torch.int32, device="cuda")
+        times: dict = {label: [] for label in launches}
+        order = list(launches) + list(reversed(launches))
+        for label in order:
+            out.zero_()
+            launches[label](r, w, p, out)
+            if not torch.equal(out != 0, want):
+                raise SystemExit(f"K1 from {label} disagrees with the plain "
+                                 f"version ({name})")
+            times[label].append(cuda_ms(
+                lambda: launches[label](r, w, p, out), 20, setup=out.zero_))
+        result[name] = {label: statistics.mean(t) for label, t in times.items()}
+        log(f"K1 {name}: " + ", ".join(
+            f"{label} {' / '.join(f'{t:.4f}' for t in times[label])} ms"
+            for label in launches))
+    print(json.dumps({"k1_against": result}))
+
+
 def main() -> int:
     import torch
 
@@ -574,6 +915,16 @@ def main() -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     log(smi.stdout.strip())
+    if sys.argv[1:2] == ["--k1-against"]:
+        compare_k1(sys.argv[2:])
+        return 0
+    clock = subprocess.run(["nvidia-smi", "-i", "0",
+                            "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True)
+    log(f"maximum SM clock {clock.stdout.strip()} (the bounds take "
+        f"{SM_CLOCK_HZ / 1e6:.0f} MHz: {INT_OPS_PER_S / 1e12:.2f} T integer "
+        f"operations/s)")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on {kind}")
 
@@ -633,16 +984,20 @@ def main() -> int:
         where = "phase 5" if record["name"] == "smith_waterman" else "run A"
         log(f"{record['name']}: kernel {record['ms']:.4f} ms, plain "
             f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
-            f"({record['bound_by']}), {record['launches']} launches in "
+            f"({record['bound_by']}, {record['bound_ms'] / record['ms']:.1%} "
+            f"of the kernel's time), {record['launches']} launches in "
             f"{where}")
         if record["launches"] <= 0:
             raise SystemExit(f"{record['name']} never launched on the main "
                              f"path")
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
+    # K1 adds its every-diagonal bound and its phase-2 cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: record[key] for key in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "walk_all_bound_ms", "cases")
+    print(json.dumps({"kernels": [{key: record[key] for key in keys
+                                   if key in record}
                                   for record in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

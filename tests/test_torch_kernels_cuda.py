@@ -18,8 +18,9 @@ def cuda():
     return torch.device("cuda")
 
 
+# W = 1000: rows that are no multiple of 16 bytes
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,W", [(64, 1024), (512, 8192)])
+@pytest.mark.parametrize("N,W", [(64, 1024), (512, 8192), (64, 1000)])
 def test_accept_wavefront_kernel_matches_plain(cuda, N, W):
     from chip_smoke import accept_inputs
 
@@ -32,6 +33,30 @@ def test_accept_wavefront_kernel_matches_plain(cuda, N, W):
     assert kernels.launch_counts["accept_wavefront"] == before + 1
     assert torch.equal(got, want)
     assert 0 < int(want.sum()) < N
+
+
+# the adversarial rows at the main path's shape, and a block of 64
+# low-complexity rows (a poly-A read against a window of A8 G4 repeats, a
+# rejecting row where every diagonal is a candidate)
+@pytest.mark.cuda
+def test_accept_wavefront_kernel_adversarial_rows(cuda):
+    import numpy as np
+
+    from chip_smoke import ACCEPT_KINDS, accept_adversarial_inputs
+
+    reads, windows, params = accept_adversarial_inputs(N=4 * len(ACCEPT_KINDS))
+    kinds = len(ACCEPT_KINDS)
+    block = accept_adversarial_inputs(N=kinds * 64)
+    reads, windows, params = (
+        torch.from_numpy(np.concatenate([x, y[2::kinds]])).to(cuda)
+        for x, y in zip((reads, windows, params), block))
+    got = realign.accept_wavefront(reads, windows, params)
+    want = realign.accept_wavefront_plain(reads, windows,
+                                          *params.unbind(dim=1))
+    assert torch.equal(got, want)
+    expected = [ACCEPT_KINDS[row % kinds][1]
+                for row in range(4 * kinds)] + [False] * 64
+    assert want.cpu().tolist() == expected
 
 
 @pytest.mark.cuda

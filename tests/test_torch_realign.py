@@ -223,6 +223,25 @@ def test_accept_pairs_streams_several_batches():
     np.testing.assert_array_equal(got, np.tile(got[:len(reads)], 3))
 
 
+def test_accept_pairs_refuses_a_negative_min_score():
+    """K1 walks only the diagonals a seed names, which is exact only while
+    min_score is above what an unseeded walk can score (read_len - 2^20):
+    on a CUDA device accept_pairs refuses a lower one before it builds a
+    row. The plain version walks every diagonal, so on the CPU any
+    min_score answers as the JAX package does."""
+    reads, windows, min_scores = _pairs_bounds()
+    low = [-(2 ** 20)] + list(min_scores[1:])
+    with pytest.raises(ValueError, match="on a CUDA device"):
+        realign.accept_pairs(reads, windows, low,
+                             device=torch.device("cuda"))
+    for first in (-1, -(2 ** 20) + 1):
+        scores = [first] + list(min_scores[1:])
+        got = realign.accept_pairs(reads, windows, scores, device=CPU)
+        want = jax_realign.accept_pairs(reads, windows, scores)
+        np.testing.assert_array_equal(got, want)
+        assert got[0]
+
+
 def _plain_dp_scores(reads, windows):
     """The textbook Smith-Waterman recurrence, one cell at a time (+1 / -1,
     linear gap -1, floor 0, PAD cells 0)."""
