@@ -6,24 +6,35 @@
 // smith_waterman_scores (:124), the scoring half of realign_step, which the
 // data-parallel path runs (parallel/dp.py sharded_realign_step).
 //
-// What bounds it: integer operations. A cell needs about 9 (the match test
-// and select, three candidate adds, the max of four, the running best) and
-// no cell can be skipped, while the inputs are one byte per read position
-// and per window column: at 65,536 rows x 256 x 256 that is ~4e9 cells
-// against 34 MB, so operations and not memory set the bound.
+// What bounds it: integer operations. No cell can be skipped. Every score
+// fits 16 bits, so sm_90's 16x2 forms do a cell of two rows in one 32-bit
+// instruction, and such a pair of valid cells needs five: one byte permute
+// for the match test and its select, h + gap, the add, max and floor at 0
+// (one DPX instruction), each at 64 a clock per SM, and the max of up and
+// left and the running best, max.s16x2 at 128 a clock: 4 slots of the
+// 32-bit integer rate a pair, 2 a cell (chip_smoke.py SW_OPS). The inputs
+// are one byte per read position and window column: at 65,536 rows x 256
+// x 256 that is ~4e9 cells against 34 MB, so operations and not memory set
+// the bound.
 //
 // Design: the TPU kernel keeps [block, L] carry diagonals in VMEM and feeds
 // window bytes through a 128-lane shift register. Gaps couple neighbouring
-// cells of a diagonal, so unlike K1 this needs a real wavefront, and on the
-// GPU it lives in one warp per row with every carry in registers: lane k
-// holds a stripe of S = L/32 read positions and at step t computes column
-// t - k; the h of its stripe's last row and the window byte it used go to
-// lane k+1 in one __shfl_up_sync (packed as h << 8 | byte), so a row takes
-// W + 31 steps (fewer when the last lanes hold only padding) with two
-// shuffles each. Lane 0 takes window bytes from a register chunk of 128
-// columns that the warp loads as whole 32-bit words, one per lane, every
-// 128 steps. The cell update is one DPX __viaddmax_s32_relu. The running
-// best is a per-lane max, then __reduce_max_sync. A block holds 8 rows.
+// cells of a diagonal, so this needs a real wavefront, and on the GPU it
+// lives in one warp per two batch rows with every carry in registers, the
+// two rows in the halves of each 32-bit word (smith_waterman.cuh): lane k
+// holds a stripe of S = L/32 read positions of both rows and at step t
+// computes column t - k. The two rows' h of the stripe's last position and
+// their window codes of the column go to lane k+1 in one __shfl_up_sync,
+// so a pair of rows takes W + 31 steps (fewer when the last lanes hold only
+// padding), run in fours. Lane 0 takes the codes from a register chunk of
+// 128 columns of both rows that the warp loads as whole 32-bit words, one
+// per lane and row, every 128 steps; one more shuffle every four steps
+// hands lane 0 its next four columns. A cell is one byte permute (the score by read code,
+// from two words built per step from the window codes), max.s16x2, the
+// DPX add+max.relu, a three-input AND for PAD, add.s16x2 and max.s16x2.
+// The running best is a per-lane max, then __reduce_max_sync per row. A
+// block holds 4 warps (8 rows; ~1 % faster than 8 warps, PERF.md); an odd
+// batch's last warp pairs its row with an all-PAD dummy.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,7 +42,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block
+constexpr int kWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 // four window bytes from column at on, PAD past the row's end
@@ -56,39 +67,56 @@ smith_waterman_kernel(const uint8_t* __restrict__ reads,
                       int32_t* __restrict__ out, int n, int L, int W,
                       int match, int mismatch, int gap) {
     const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const int row = 2 * (blockIdx.x * kWarps + (threadIdx.x >> 5));
     if (row >= n) return;  // the whole warp leaves together
+    const bool has_b = row + 1 < n;
 
-    arriba::SwLane<S> stripe;
-    arriba::sw_lane_init<S>(&stripe, reads + (size_t)row * L, lane * S, L);
-    const uint8_t* win = windows + (size_t)row * W;
-    const bool aligned = (reinterpret_cast<uintptr_t>(win) & 3) == 0;
+    const arriba::SwScores sc = arriba::sw_scores(match, mismatch, gap);
+    arriba::SwPair<S> stripe;
+    arriba::sw_pair_init<S>(&stripe, reads + (size_t)row * L,
+                            has_b ? reads + (size_t)(row + 1) * L : nullptr,
+                            lane * S, L, sc.gap2);
+    const uint8_t* win_a = windows + (size_t)row * W;
+    const uint8_t* win_b = win_a + W;
+    const bool aligned = (reinterpret_cast<uintptr_t>(win_a) & 3) == 0
+                         && (W & 3) == 0;
     // the last lane holding read positions finishes column W-1 at step
-    // W - 1 + (L - 1) / S
+    // W - 1 + (L - 1) / S; the steps run in fours, and the up to three
+    // past that see PAD columns only, which change no score
     const int n_steps = L > 0 ? W + (L - 1) / S : 0;
-    uint32_t chunk = 0;
-    int packed = arriba::SW_PAD;  // h of the stripe's last row << 8 | byte
-    for (int t = 0; t < n_steps; ++t) {
-        if ((t & 127) == 0) {
-            chunk = load_window_word(win, t + 4 * lane, W, aligned);
+    // before the first column: h = 0 and PAD codes
+    uint32_t word = arriba::sw_window_word(arriba::SW_PAD, arriba::SW_PAD);
+    for (int base = 0; base < n_steps; base += 128) {
+        const int at = base + 4 * lane;
+        const uint32_t chunk =
+            load_window_word(win_a, at, W, aligned)
+            | ((has_b ? load_window_word(win_b, at, W, aligned)
+                      : 0x04040404u) << 4);
+        const int steps = min(128, n_steps - base);
+        for (int i = 0; i < steps; i += 4) {
+            const uint32_t pair = __shfl_sync(kFull, chunk, i >> 2);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const uint32_t incoming = __shfl_up_sync(kFull, word, 1);
+                const uint32_t in = lane == 0 ? arriba::sw_lane0_word(pair, u)
+                                              : incoming;
+                word = arriba::sw_pair_column<S>(&stripe, in, sc);
+            }
         }
-        const uint32_t word = __shfl_sync(kFull, chunk, (t >> 2) & 31);
-        const int incoming = __shfl_up_sync(kFull, packed, 1);
-        const int up = lane == 0 ? 0 : incoming >> 8;
-        const int w = lane == 0 ? (int)((word >> (8 * (t & 3))) & 0xffu)
-                                : incoming & 0xff;
-        const int h = arriba::sw_lane_column<S>(&stripe, up, w, match,
-                                                mismatch, gap);
-        packed = (h << 8) | w;
     }
-    const int best = __reduce_max_sync(kFull, stripe.best);
-    if (lane == 0) out[row] = best;
+    const int best_a = (int)__reduce_max_sync(kFull, stripe.best & 0xffffu);
+    const int best_b = (int)__reduce_max_sync(kFull, stripe.best >> 16);
+    if (lane == 0) {
+        out[row] = best_a;
+        if (has_b) out[row + 1] = best_b;
+    }
 }
 
 template <int S>
 int launch(const void* reads, const void* windows, void* out, int n, int L,
            int W, int match, int mismatch, int gap, cudaStream_t stream) {
-    const int blocks = (n + kWarps - 1) / kWarps;
+    const int pairs = (n + 1) / 2;
+    const int blocks = (pairs + kWarps - 1) / kWarps;
     smith_waterman_kernel<S><<<blocks, kWarps * 32, 0, stream>>>(
         (const uint8_t*)reads, (const uint8_t*)windows, (int32_t*)out, n, L,
         W, match, mismatch, gap);
@@ -99,9 +127,10 @@ int launch(const void* reads, const void* windows, void* out, int n, int L,
 
 extern "C" {
 
-// reads uint8 [n, L] (PAD 4), windows uint8 [n, W] (PAD 4), out int32 [n];
-// L <= 512 (a stripe of at most 16 positions a lane), and every h below
-// 2^23 (checked by the caller).
+// reads uint8 [n, L] (codes 0-4, PAD 4), windows uint8 [n, W] (the same),
+// out int32 [n]; L <= 512 (a stripe of at most 16 positions a lane), and
+// the scores inside the 16-bit guard of smith_waterman.cuh (checked by the
+// caller).
 int arriba_smith_waterman(const void* reads, const void* windows, void* out,
                           int n, int L, int W, int match, int mismatch,
                           int gap, void* stream) {

@@ -105,7 +105,8 @@ def smith_waterman_scores_plain(reads, windows, match: int = 1,
 def smith_waterman_scores(reads, windows, match: int = 1, mismatch: int = -1,
                           gap: int = -1) -> torch.Tensor:
     """int32 [N] best local alignment scores: K3 for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. reads and windows hold codes 0-4 (PAD
+    4), as ops/encode.py builds them; K3 refuses a larger byte."""
     if reads.is_cuda:
         from .. import kernels
         return kernels.smith_waterman(reads.contiguous(),

@@ -2,10 +2,17 @@
 """Build and drive the PyTorch / CUDA port (arriba_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --k1-against CSRC_DIR [CSRC_DIR ...]
+    python3 chip_smoke.py --against KERNEL SOURCE [SOURCE ...]
+    python3 chip_smoke.py --instruction-rates
 
-The second form only times K1 built from other sources against this
-checkout's (compare_k1). Phases of the first (any failure exits non-zero, and no result line is printed):
+The second form only times one kernel (accept_wavefront, low_entropy or
+smith_waterman) built from other sources against this checkout's build
+(compare); a SOURCE is a csrc directory, such as an earlier commit's
+unpacked with ``git archive``. ``--k1-against SOURCE ...`` is ``--against
+accept_wavefront SOURCE ...``. The third measures the issue rate of the
+16x2 instructions K3's cells run against LOP3's (instruction_rates).
+Phases of the first (any failure exits non-zero, and no result line is
+printed):
 
 0. The card: ``nvidia-smi`` name and power limit, maximum SM clock,
    torch's device name.
@@ -19,12 +26,13 @@ checkout's (compare_k1). Phases of the first (any failure exits non-zero, and no
    (accept_cases); K2
    (low-entropy scan) at 131,072 reads x 150 codes; K3 (Smith-Waterman
    scores) at 65,536 rows x 256 read codes x 256 window codes. Kernel time
-   is the median of CUDA-event timed launches after a warm-up, inputs
-   checked and output allocated ahead; the bound is the larger of bytes
-   over the memory rate and the operations the algorithm needs over the
-   card's 32-bit integer rate. K1's operations are counted from its inputs
-   (accept_work: window positions scanned, cells walked on the candidate
-   diagonals).
+   is the median of 20 CUDA-event timed windows after a warm-up, inputs
+   checked and output allocated ahead: single launches for K1, whose output
+   is zeroed before each, windows of 10 launches for K2 and K3, counted as
+   their mean; the bound is the larger of bytes over the memory rate and
+   the operations the algorithm needs over the card's rate for them. K1's
+   operations are counted from its inputs (accept_work: window positions
+   scanned, cells walked on the candidate diagonals).
 3. The main path: the genome-scale 150 bp sample (bench_samples.build_tier2)
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
@@ -74,7 +82,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 # multiply-adds, 4x the integer rate, and is no bound for integer work.)
 MEMORY_BYTES_PER_S = 3.35e12
 SM_CLOCK_HZ = 1.98e9
-INT_OPS_PER_S = 64 * 132 * SM_CLOCK_HZ
+INT_PER_CLOCK = 64
+INT_OPS_PER_S = INT_PER_CLOCK * 132 * SM_CLOCK_HZ
 # integer operations the algorithm needs per unit of work; loads and stores
 # are counted as bytes, tests fixed per read or per diagonal are hoisted
 # out, and base codes are computed once per byte.
@@ -91,31 +100,59 @@ AW_OPS = {"byte match": 1, "code match": 1, "streak start": 2,
           "mismatch run": 2, "walk score": 2, "walk dies": 2, "accept": 4,
           "fired score": 1, "best score": 1, "a": 2, "b": 2,
           "loop and exit": 3}
-# K2, one scanned position of a read (the aligned-segment tests are
-# position ranges fixed per read):
-LE_OPS = {"code extract": 2, "3-mer shift": 3, "selection": 5,
-          "three counters": 3, "three threshold tests": 5,
-          "selected / crossed branches": 2, "loop": 2}
-# K3, one valid (read, window) cell (a read and a window byte both not PAD),
-# counted as source operations: the kernel's DPX __viaddmax_s32_relu does
-# an add, a max and the floor at 0 in one instruction, so the card may
-# issue fewer than these, and K3's share of its bound is an upper estimate
-SW_OPS = {"match test and select": 2, "three candidate adds": 3,
-          "max of four": 3, "running best": 1}
+# K2 counts a selected 3-mer into one 32-bit word, its three counters in
+# 10-bit fields, and tests the thresholds once a 3-mer when the read is
+# done, so no read's scan ends early: every eligible position of every read
+# counts. One eligible position (the aligned segments are position ranges
+# fixed per read, so a position's counter weight is fixed between two range
+# ends and the add is predicated on the selection):
+LE_OPS = {"3-mer from the byte pair": 2,
+          "byte pair and loop, shared by four positions": 1,
+          "selection: two equality tests and their combine": 3,
+          "counter address": 1, "counter add": 1}
+# K2, each of a read's 64 counter words: clearing it and reading it back
+# (128-bit shared-memory stores and loads, four words each), its whole-read
+# and first-segment fields (the second segment's is the top field), and the
+# tests against c_all >= 1 and the three thresholds, chained
+LE_WORD_OPS = {"clear and read back": 0.5, "two fields": 3,
+               "four threshold tests": 4}
+# K3, a pair of valid (read, window) cells, one of each of two independent
+# rows (a read and a window byte both not PAD): the instructions any
+# implementation needs, each with its issue rate a clock per SM. Every
+# score fits 16 bits (kernels.sw_guard), so sm_90's 16x2 forms do both
+# rows' cells in one 32-bit instruction. One byte permute takes the match
+# test and the select from two score words built once a column; h + gap
+# serves as "up" for the cell below and as "left" for the next column; the
+# add of the diagonal's score, the max and the floor at 0 are one DPX
+# instruction. max.s16x2 issues at twice the 32-bit integer rate
+# (--instruction-rates on an H100 80GB HBM3 at 700 W: 123.4 a clock per SM
+# against LOP3's 64; prmt 64.0, add.s16x2 65.5, viaddmax_s16x2_relu 61.0).
+SW_OPS = {"match test and select (prmt)": (1, INT_PER_CLOCK),
+          "h + gap (add.s16x2)": (1, INT_PER_CLOCK),
+          "max of up and left (max.s16x2)": (1, 2 * INT_PER_CLOCK),
+          "add, max and floor at 0 (viaddmax_s16x2_relu)": (1, INT_PER_CLOCK),
+          "running best (max.s16x2)": (1, 2 * INT_PER_CLOCK)}
 AW_OPS_PER_POSITION = sum(AW_SCAN_OPS.values())  # 14
 AW_OPS_PER_CELL = sum(AW_OPS.values())          # 36
-LE_OPS_PER_POSITION = sum(LE_OPS.values())      # 22
-SW_OPS_PER_CELL = sum(SW_OPS.values())          # 9
+LE_OPS_PER_POSITION = sum(LE_OPS.values())      # 8
+LE_OPS_PER_READ = 64 * sum(LE_WORD_OPS.values())  # 480
+# in slots of the 32-bit integer rate: 4 a pair of cells, 2 a cell
+SW_SLOTS_PER_CELL = sum(n * INT_PER_CLOCK / rate
+                        for n, rate in SW_OPS.values()) / 2
 
 
 def log(message: str) -> None:
     print(message, flush=True)
 
 
-def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True) -> float:
-    """Median milliseconds of fn() over runs CUDA-event timed calls, after
+def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True,
+            batch: int = 1) -> float:
+    """Median milliseconds of fn() over runs CUDA-event timed windows, after
     one warm-up call unless the caller has just made one; setup(), when
-    given, runs before each call outside the timed window."""
+    given, runs before each window outside it. A window holds batch calls
+    back to back and counts their mean. The card spins (torch.cuda._sleep,
+    0.2 ms a call) before each window while the host queues it, so that
+    the host's time to launch a call does not show in a short kernel's."""
     import torch
 
     if warm_up:
@@ -129,11 +166,13 @@ def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True) -> float:
             setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e-4 * SM_CLOCK_HZ * batch))
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -503,6 +542,10 @@ def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
     return reads, windows
 
 
+# launches a timed window of K2 or K3 holds, here and in compare
+K2_K3_BATCH = 10
+
+
 def check_kernels() -> list:
     import numpy as np
     import torch
@@ -562,15 +605,15 @@ def check_kernels() -> list:
         raise SystemExit("K2 disagrees with its plain version or the input "
                          "does not exercise both verdicts")
     out = torch.empty(len(codes), dtype=torch.uint8, device=cuda)
-    ms = cuda_ms(lambda: kernels.launch_low_entropy(packed, meta_d, out), 20)
+    ms = cuda_ms(lambda: kernels.launch_low_entropy(packed, meta_d, out), 20,
+                 batch=K2_K3_BATCH)
     plain_ms = cuda_ms(lambda: readfilters._low_entropy_core_plain(
         readfilters._unpack_codes(packed, L), *meta_d.unbind(dim=1)), 5)
-    # a read's scan ends at its first crossing: count flagged reads as free
-    # (a lower bound) and every position of the others
-    positions = float(np.where(want.cpu().numpy(), 0, np.maximum(
-        lengths.astype(np.int64) - 3, 0)).sum())
+    # every eligible position of every read (LE_OPS)
+    positions = float(np.maximum(lengths.astype(np.int64) - 3, 0).sum())
     n_bytes = packed.numel() + meta.nbytes + len(codes)
-    bound_ms, bound_by = bound(n_bytes, positions * LE_OPS_PER_POSITION)
+    bound_ms, bound_by = bound(n_bytes, positions * LE_OPS_PER_POSITION
+                               + len(codes) * LE_OPS_PER_READ)
     records.append({
         "name": "low_entropy", "route": "cuda",
         "source": "arriba_tpu_torch/kernels/csrc/low_entropy.cu",
@@ -596,13 +639,14 @@ def check_kernels() -> list:
         raise SystemExit("K3 disagrees with its plain version or the scores "
                          "do not span 0 to the read length")
     out = torch.empty(len(reads), dtype=torch.int32, device=cuda)
-    ms = cuda_ms(lambda: kernels.launch_smith_waterman(r, w, out), 20)
+    ms = cuda_ms(lambda: kernels.launch_smith_waterman(r, w, out), 20,
+                 batch=K2_K3_BATCH)
     plain_ms = cuda_ms(lambda: realign.smith_waterman_scores_plain(r, w), 3)
     # every cell whose read and window bytes are not PAD counts; none can be
     # skipped
     cells = float((read_len * win_len).sum())
     n_bytes = reads.nbytes + windows.nbytes + 4 * len(reads)
-    bound_ms, bound_by = bound(n_bytes, cells * SW_OPS_PER_CELL)
+    bound_ms, bound_by = bound(n_bytes, cells * SW_SLOTS_PER_CELL)
     records.append({
         "name": "smith_waterman", "route": "cuda",
         "source": "arriba_tpu_torch/kernels/csrc/smith_waterman.cu",
@@ -831,72 +875,215 @@ def check_sharded(state, n: int) -> int:
     return launches["smith_waterman"]
 
 
-def compare_k1(sources: list) -> None:
-    """K1 built from each csrc directory in sources (an accept_wavefront.cu
-    with this checkout's C entry point, such as an earlier commit's) against
-    this checkout's K1 on the main, low-complexity and mixed cases of phase
-    2. Every build must give the plain version's verdicts. Each case times
-    the launch (median of 20) in the order this checkout, the sources, the
-    sources reversed, this checkout, and one JSON line gives the mean of
-    each build's two times."""
+def against_cases(kernel: str) -> dict:
+    """The phase-2 inputs of a kernel for compare: {case: (arguments of its
+    C entry point before the stream, setup run before each launch or None,
+    a check that the output equals the plain version's)}. K1: the main,
+    low-complexity and mixed batches; K2 and K3: their phase-2 batch."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch.ops import readfilters, realign
+
+    cuda = torch.device("cuda")
+    cases = {}
+    if kernel == "accept_wavefront":
+        for name, arrays in accept_cases().items():
+            if name == "adversarial":
+                continue
+            r, w, p = (torch.from_numpy(x).to(cuda) for x in arrays)
+            out = torch.zeros(len(r), dtype=torch.int32, device=cuda)
+            want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
+            cases[name] = ((r, w, p, out, *r.shape, w.shape[1]), out.zero_,
+                           lambda out=out, want=want: torch.equal(out != 0,
+                                                                  want))
+    elif kernel == "low_entropy":
+        codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs()
+        th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
+        meta = torch.from_numpy(np.stack([lengths, a1s, a1e, a2s, a2e, *th],
+                                         1).astype(np.int32)).to(cuda)
+        packed = torch.from_numpy(readfilters.pack_codes(codes)).to(cuda)
+        out = torch.empty(len(codes), dtype=torch.uint8, device=cuda)
+        want = readfilters._low_entropy_core_plain(
+            readfilters._unpack_codes(packed, codes.shape[1]),
+            *meta.unbind(dim=1))
+        cases["main"] = ((packed, meta, out, *packed.shape), None,
+                         lambda: torch.equal(out.view(torch.bool), want))
+    elif kernel == "smith_waterman":
+        r, w = (torch.from_numpy(x).to(cuda) for x in smith_waterman_inputs())
+        out = torch.empty(len(r), dtype=torch.int32, device=cuda)
+        want = realign.smith_waterman_scores_plain(r, w)
+        cases["main"] = ((r, w, out, *r.shape, w.shape[1], 1, -1, -1), None,
+                         lambda: torch.equal(out, want))
+    else:
+        raise SystemExit(f"--against takes accept_wavefront, low_entropy or "
+                         f"smith_waterman, not {kernel}")
+    return cases
+
+
+def compare(kernel: str, sources: list) -> None:
+    """The kernel built from each source against this checkout's build, on
+    its phase-2 inputs (against_cases). A source is a csrc directory whose
+    <kernel>.cu has this checkout's C entry point, such as an earlier
+    commit's. Every build must give the plain version's output. Each case
+    times the launches (median of 20 windows of K2_K3_BATCH, or of single
+    launches where the output is zeroed before each) in the order this
+    checkout, the sources, the sources reversed, this checkout, and one
+    JSON line gives the mean of each build's two times."""
     import ctypes
 
     import torch
 
-    from arriba_tpu_torch import kernels
     from arriba_tpu_torch.kernels import build
-    from arriba_tpu_torch.ops import realign
 
-    symbol, argtypes = build._SIGNATURES["accept_wavefront"]
+    symbol, argtypes = build._SIGNATURES[kernel]
     procs = []
     for k, source in enumerate(sources):
-        target = REPO / "build" / "k1_against" / str(k) / "libk1.so"
+        target = REPO / "build" / "against" / kernel / str(k) / "lib.so"
         target.parent.mkdir(parents=True, exist_ok=True)
         procs.append((source, target, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
-             str(pathlib.Path(source) / "accept_wavefront.cu")],
+             str(pathlib.Path(source) / f"{kernel}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    launches = {"this checkout": kernels.launch_accept_wavefront}
+    for _, ptxas in build.build((kernel,)).values():
+        for line in ptxas_lines(ptxas):
+            log(f"built this checkout: {line}")
+    entries = {"this checkout": build.load(kernel)[0]}
     for source, target, proc in procs:
         report = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {source}:\n{report[-4000:]}")
-        log(f"built {source}: " + "; ".join(
-            line.strip() for line in report.splitlines()
-            if "registers" in line))
+        for line in ptxas_lines(report):
+            log(f"built {source}: {line}")
         entry = getattr(ctypes.CDLL(str(target)), symbol)
         entry.argtypes, entry.restype = argtypes, ctypes.c_int
+        entries[source] = entry
 
-        def launch(r, w, p, out, entry=entry, source=source):
-            code = entry(r.data_ptr(), w.data_ptr(), p.data_ptr(),
-                         out.data_ptr(), r.shape[0], r.shape[1], w.shape[1],
-                         torch.cuda.current_stream().cuda_stream)
+    def launcher(label, args):
+        values = [x.data_ptr() if torch.is_tensor(x) else x for x in args]
+
+        def launch():
+            code = entries[label](*values,
+                                  torch.cuda.current_stream().cuda_stream)
             if code != 0:
-                raise SystemExit(f"K1 from {source} failed to launch ({code})")
-        launches[source] = launch
+                raise SystemExit(f"{kernel} from {label} failed to launch "
+                                 f"({code})")
+        return launch
 
     result = {}
-    for name, arrays in accept_cases().items():
-        if name == "adversarial":
-            continue
-        r, w, p = (torch.from_numpy(x).to("cuda") for x in arrays)
-        want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
-        out = torch.zeros(len(r), dtype=torch.int32, device="cuda")
-        times: dict = {label: [] for label in launches}
-        order = list(launches) + list(reversed(launches))
-        for label in order:
-            out.zero_()
-            launches[label](r, w, p, out)
-            if not torch.equal(out != 0, want):
-                raise SystemExit(f"K1 from {label} disagrees with the plain "
-                                 f"version ({name})")
+    for name, (args, setup, check) in against_cases(kernel).items():
+        times: dict = {label: [] for label in entries}
+        for label in list(entries) + list(reversed(entries)):
+            launch = launcher(label, args)
+            if setup is not None:
+                setup()
+            launch()
+            if not check():
+                raise SystemExit(f"{kernel} from {label} disagrees with the "
+                                 f"plain version ({name})")
             times[label].append(cuda_ms(
-                lambda: launches[label](r, w, p, out), 20, setup=out.zero_))
+                launch, 20, setup=setup, batch=1 if setup else K2_K3_BATCH))
         result[name] = {label: statistics.mean(t) for label, t in times.items()}
-        log(f"K1 {name}: " + ", ".join(
+        log(f"{kernel} {name}: " + ", ".join(
             f"{label} {' / '.join(f'{t:.4f}' for t in times[label])} ms"
-            for label in launches))
-    print(json.dumps({"k1_against": result}))
+            for label in entries))
+    print(json.dumps({"against": {"kernel": kernel, "cases": result}}))
+
+
+# A micro-loop per instruction: every thread runs 8 independent chains of
+# it, so the rate is the instruction's issue rate, not its latency
+RATE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <int OP>
+__device__ inline uint32_t op(uint32_t x, uint32_t y, uint32_t z) {
+    uint32_t r;
+    if (OP == 0) asm volatile("lop3.b32 %0, %1, %2, %3, 0x96;"
+                              : "=r"(r) : "r"(x), "r"(y), "r"(z));
+    if (OP == 1) asm volatile("add.s16x2 %0, %1, %2;"
+                              : "=r"(r) : "r"(x), "r"(y));
+    if (OP == 2) asm volatile("max.s16x2 %0, %1, %2;"
+                              : "=r"(r) : "r"(x), "r"(y));
+    if (OP == 3) r = __viaddmax_s16x2_relu(x, y, z);
+    if (OP == 4) asm volatile("prmt.b32 %0, %1, %2, %3;"
+                              : "=r"(r) : "r"(x), "r"(y), "r"(z));
+    return r;
+}
+
+template <int OP>
+__global__ void rate(uint32_t* out, int iters, uint32_t y, uint32_t z) {
+    uint32_t x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = threadIdx.x * 8 + k;
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x[k] = op<OP>(x[k], y, z);
+    }
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc ^= x[k];
+    out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
+extern "C" int instruction_rate(int which, void* out, int blocks, int iters,
+                                void* stream) {
+    void (*kernels[])(uint32_t*, int, uint32_t, uint32_t) = {
+        rate<0>, rate<1>, rate<2>, rate<3>, rate<4>};
+    kernels[which]<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, iters, 0x00050003u, 0x3210u);
+    return (int)cudaGetLastError();
+}
+"""
+RATE_OPS = ("lop3.b32", "add.s16x2", "max.s16x2", "viaddmax_s16x2_relu",
+            "prmt.b32")
+
+
+def instruction_rates() -> None:
+    """The issue rate of the instructions K3's cells run, each against LOP3
+    (64 a clock per SM by the CUDA C++ Programming Guide's table) in the
+    same call, so the clock cancels: each as instructions a clock per SM
+    = 64 x LOP3's time / its time, and as instructions per second."""
+    import ctypes
+
+    import torch
+
+    from arriba_tpu_torch.kernels import build
+
+    target = REPO / "build" / "instruction_rate" / "lib.so"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    source = target.with_name("rate.cu")
+    source.write_text(RATE_SOURCE)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
+                    str(source)], check=True, capture_output=True)
+    entry = ctypes.CDLL(str(target)).instruction_rate
+    entry.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p]
+    blocks, iters = 132 * 8, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+
+    def launch(which):
+        code = entry(which, out.data_ptr(), blocks, iters,
+                     torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise SystemExit(f"instruction_rate failed to launch ({code})")
+
+    times = {name: cuda_ms(lambda k=k: launch(k), 10)
+             for k, name in enumerate(RATE_OPS)}
+    count = blocks * 256 * iters * 8 / 32  # warp instructions
+    result = {name: {"ms": ms, "per_clock_per_sm": 64 * times["lop3.b32"] / ms,
+                     "warp_instructions_per_s": count / ms * 1e3}
+              for name, ms in times.items()}
+    for name, r in result.items():
+        log(f"{name}: {r['ms']:.4f} ms, {r['per_clock_per_sm']:.1f} a clock "
+            f"per SM (LOP3 = 64)")
+    print(json.dumps({"instruction_rates": result}))
+
+
+def ptxas_lines(report: str) -> list:
+    """ptxas's register, shared memory and spill lines of an nvcc log"""
+    return [line.strip() for line in report.splitlines()
+            if "registers" in line or "spill" in line]
 
 
 def main() -> int:
@@ -916,7 +1103,13 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     log(smi.stdout.strip())
     if sys.argv[1:2] == ["--k1-against"]:
-        compare_k1(sys.argv[2:])
+        compare("accept_wavefront", sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) > 2:
+        compare(sys.argv[2], sys.argv[3:])
+        return 0
+    if sys.argv[1:2] == ["--instruction-rates"]:
+        instruction_rates()
         return 0
     clock = subprocess.run(["nvidia-smi", "-i", "0",
                             "--query-gpu=clocks.max.sm",
@@ -941,9 +1134,8 @@ def main() -> int:
     log(f"build: native engine {native_s:.1f} s, CUDA kernels "
         f"{kernels_s:.1f} s ({', '.join(report) or 'up to date'})")
     for name, (_, ptxas) in report.items():
-        for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(ptxas):
+            log(f"  {name}: {line}")
 
     # phase 2
     t0 = time.perf_counter()

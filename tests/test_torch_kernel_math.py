@@ -7,11 +7,15 @@ the kernels do (K1: the seed lookup per strip of diagonals, the read's
 8-mers in a bitmap, the window scan claiming each named diagonal once, then
 a walk of each claimed diagonal, OR over them; and every diagonal walked,
 for the per-diagonal soundness of the lookup;
-K2: one sequential walk per read over its 2-bit-packed codes; K3: the 32
-lanes of a warp, each a stripe of read positions, stepping over the window
-columns with lane k taking lane k-1's previous output as the shuffle does),
-and the results are held, exactly, against the port's plain PyTorch
-versions and the JAX package's ops.
+K2: one sequential walk per read over its 2-bit-packed codes, and the
+kernel's walk of a read from one byte pair per four positions into packed
+counter words, tested once per 3-mer, or for wider rows the sequential
+walk with three counters a 3-mer; K3: the 32 lanes of a warp over a pair of
+rows in 16-bit halves, each lane a stripe of read positions, stepping over
+the window columns with lane k taking lane k-1's previous word as the
+shuffle does, with the host emulations of the 16x2 instructions), and the
+results are held, exactly, against the port's plain PyTorch versions and
+the JAX package's ops.
 """
 
 import ctypes
@@ -39,32 +43,42 @@ HARNESS = r"""
 #include "low_entropy.cuh"
 #include "smith_waterman.cuh"
 
-// K3's warp for one row: lane k reads lane k-1's output of the previous
-// step (lanes run from 31 down to 0, so that output is not yet replaced)
+// K3's warp for a pair of rows (b, wb null: the dummy row of an odd
+// batch): every 128 steps each lane loads four columns of both windows;
+// lane 0 takes column t from lane (t / 4) % 32's chunk, and lane k reads
+// lane k-1's word of the previous step (lanes run from 31 down to 0, so
+// that word is not yet replaced)
 template <int S>
-static int sw_row(const uint8_t* read, const uint8_t* window, int L, int W,
-                  int match, int mismatch, int gap) {
-    arriba::SwLane<S> lanes[32];
-    int packed[32];
+static void sw_pair(const uint8_t* a, const uint8_t* b, const uint8_t* wa,
+                    const uint8_t* wb, int L, int W, int match, int mismatch,
+                    int gap, int32_t* best_a, int32_t* best_b) {
+    const arriba::SwScores sc = arriba::sw_scores(match, mismatch, gap);
+    arriba::SwPair<S> lanes[32];
+    uint32_t words[32], chunk[32];
     for (int k = 0; k < 32; ++k) {
-        arriba::sw_lane_init<S>(&lanes[k], read, k * S, L);
-        packed[k] = arriba::SW_PAD;
+        arriba::sw_pair_init<S>(&lanes[k], a, b, k * S, L, sc.gap2);
+        words[k] = arriba::sw_window_word(arriba::SW_PAD, arriba::SW_PAD);
     }
-    const int n_steps = L > 0 ? W + (L - 1) / S : 0;
+    // the kernel runs the steps in fours
+    const int n_steps = L > 0 ? (W + (L - 1) / S + 3) & ~3 : 0;
     for (int t = 0; t < n_steps; ++t) {
+        if ((t & 127) == 0) {
+            for (int k = 0; k < 32; ++k) {
+                chunk[k] = arriba::sw_window_pair(wa, wb, t + 4 * k, W);
+            }
+        }
+        const uint32_t pair = chunk[(t >> 2) & 31];
         for (int k = 31; k >= 0; --k) {
-            const int up = k == 0 ? 0 : packed[k - 1] >> 8;
-            const int w = k == 0 ? (t < W ? window[t] : arriba::SW_PAD)
-                                 : packed[k - 1] & 0xff;
-            const int h = arriba::sw_lane_column<S>(&lanes[k], up, w, match,
-                                                    mismatch, gap);
-            packed[k] = (h << 8) | w;
+            const uint32_t in = k == 0 ? arriba::sw_lane0_word(pair, t)
+                                       : words[k - 1];
+            words[k] = arriba::sw_pair_column<S>(&lanes[k], in, sc);
         }
     }
-    int best = 0;
-    for (int k = 0; k < 32; ++k) best = lanes[k].best > best ? lanes[k].best
-                                                             : best;
-    return best;
+    *best_a = *best_b = 0;
+    for (int k = 0; k < 32; ++k) {
+        *best_a = std::max(*best_a, (int)(lanes[k].best & 0xffffu));
+        *best_b = std::max(*best_b, (int)(lanes[k].best >> 16));
+    }
 }
 
 extern "C" {
@@ -172,7 +186,7 @@ void aw_rows_diagonals(const uint8_t* reads, const uint8_t* windows,
 // K2's work per row, counters at stride 1
 void le_rows(const uint8_t* packed, const int32_t* meta, uint8_t* out,
              int n, int row_bytes) {
-    uint16_t counts[3 * arriba::LE_KMERS];
+    uint32_t counts[3 * arriba::LE_KMERS];
     for (int row = 0; row < n; ++row) {
         const int32_t* m = meta + (long)row * 8;
         out[row] = arriba::le_row(packed + (long)row * row_bytes, m[0], m[1],
@@ -181,18 +195,66 @@ void le_rows(const uint8_t* packed, const int32_t* meta, uint8_t* out,
     }
 }
 
-// K3's work per row, with the stripe the kernel's dispatch picks
+// K2's work per row as the kernel does it, the route following the row
+// width as the kernel's dispatch does: rows of at most 3,072 codes through
+// le_scan_packed into 64 packed words and the test of each word, wider
+// ones through le_row with three 32-bit counters a 3-mer
+void le_rows_kernel(const uint8_t* packed, const int32_t* meta,
+                    uint8_t* out, int n, int row_bytes) {
+    const bool packed_route =
+        4LL * row_bytes <= arriba::LE_PACKED_MAX_CODES;
+    uint32_t words[64], counts[3 * arriba::LE_KMERS];
+    for (int row = 0; row < n; ++row) {
+        const int32_t* m = meta + (long)row * 8;
+        const uint8_t* r = packed + (long)row * row_bytes;
+        const int length = std::min(m[0], 4 * row_bytes);
+        if (!packed_route) {
+            out[row] = arriba::le_row(r, length, m[1], m[2], m[3], m[4],
+                                      m[5], m[6], m[7], counts, 1);
+            continue;
+        }
+        const int n_pos = std::max(length - arriba::LE_K, 0);
+        std::fill(words, words + 64, 0u);
+        arriba::le_scan_packed(r, row_bytes, n_pos,
+                               arriba::le_segment(m[1], m[2], n_pos),
+                               arriba::le_segment(m[3], m[4], n_pos),
+                               [&](int v, uint32_t w) { words[v] += w; });
+        bool flagged = false;
+        for (int v = 0; v < 64; ++v) {
+            flagged |= arriba::le_crossed_packed(words[v], m[5], m[6], m[7]);
+        }
+        out[row] = flagged;
+    }
+}
+
+// K3's work per pair of rows, with the stripe the kernel's dispatch picks;
+// an odd n pairs the last row with the all-PAD dummy
 void sw_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
              int n, int L, int W, int match, int mismatch, int gap) {
     const int stripe = (L + 31) / 32;
-    for (int row = 0; row < n; ++row) {
-        const uint8_t* r = reads + (long)row * L;
-        const uint8_t* w = windows + (long)row * W;
-        out[row] = stripe <= 1 ? sw_row<1>(r, w, L, W, match, mismatch, gap)
-                 : stripe <= 2 ? sw_row<2>(r, w, L, W, match, mismatch, gap)
-                 : stripe <= 4 ? sw_row<4>(r, w, L, W, match, mismatch, gap)
-                 : stripe <= 8 ? sw_row<8>(r, w, L, W, match, mismatch, gap)
-                 : sw_row<16>(r, w, L, W, match, mismatch, gap);
+    for (int row = 0; row < n; row += 2) {
+        const bool has_b = row + 1 < n;
+        const uint8_t* a = reads + (long)row * L;
+        const uint8_t* b = has_b ? a + L : nullptr;
+        const uint8_t* wa = windows + (long)row * W;
+        const uint8_t* wb = has_b ? wa + W : nullptr;
+        int32_t dummy;
+        int32_t* out_b = has_b ? &out[row + 1] : &dummy;
+        auto pair = stripe <= 1 ? sw_pair<1> : stripe <= 2 ? sw_pair<2>
+                  : stripe <= 4 ? sw_pair<4> : stripe <= 8 ? sw_pair<8>
+                  : sw_pair<16>;
+        pair(a, b, wa, wb, L, W, match, mismatch, gap, &out[row], out_b);
+    }
+}
+
+// K3's 16x2 primitives as the host emulation computes them: 0 add.s16x2,
+// 1 max.s16x2, 2 the DPX add+max.relu, 3 prmt
+uint32_t sw_primitive(int which, uint32_t a, uint32_t b, uint32_t c) {
+    switch (which) {
+    case 0: return arriba::sw_add2(a, b);
+    case 1: return arriba::sw_max2(a, b);
+    case 2: return arriba::sw_addmax_relu2(a, b, c);
+    default: return arriba::sw_perm(a, b, c);
     }
 }
 
@@ -218,7 +280,10 @@ def harness(tmp_path_factory):
     lib.aw_rows_seeded.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.aw_rows_diagonals.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.le_rows_kernel.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.sw_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    lib.sw_primitive.argtypes = [ctypes.c_int] + [ctypes.c_uint32] * 3
+    lib.sw_primitive.restype = ctypes.c_uint32
     return lib
 
 
@@ -423,6 +488,65 @@ def test_low_entropy_position_update_matches_plain_and_jax(harness,
     assert 0 < plain.sum() < len(codes)
 
 
+def _low_entropy_edge_rows(seed, n, L):
+    """_low_entropy_rows plus rows at the edges: lengths 0-4 and L,
+    segments starting before the read or past its end, ending past it, and
+    inverted, and homopolymer rows of the full width."""
+    codes, lengths, a1s, a1e, a2s, a2e = (
+        np.concatenate([x, np.resize(x, (24,) + x.shape[1:])])
+        for x in _low_entropy_rows(seed, n, L))
+    edge = np.arange(n, n + 24)
+    lengths[edge[:6]] = [0, 1, 2, 3, 4, L]
+    codes[edge[6:12]] = int(seed) % 4                   # homopolymers
+    lengths[edge[6:12]] = L
+    a1s[edge[6:]] = np.resize([-7, 0, L - 2, L + 5, 3, 1], 18)
+    a1e[edge[6:]] = np.resize([L + 9, L, L + 1, L + 9, 2, L // 2], 18)
+    a2s[edge[12:]] = np.resize([L // 3, -1, L], 12)
+    a2e[edge[12:]] = np.resize([L // 3, L // 2, L + 3], 12)
+    return codes, lengths, a1s, a1e, a2s, a2e
+
+
+def _low_entropy_through(harness, rows, kmer_content):
+    """K2's per-row procedure (le_rows_kernel), the plain version and the
+    JAX package on the same rows; all must agree. Returns the flags."""
+    codes, lengths, a1s, a1e, a2s, a2e = rows
+    th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, kmer_content)
+    meta = np.ascontiguousarray(np.stack(
+        [lengths, a1s, a1e, a2s, a2e, *th], axis=1).astype(np.int32))
+    packed = np.ascontiguousarray(readfilters.pack_codes(codes))
+    plain = readfilters.low_entropy_batch(
+        *(torch.from_numpy(x) for x in rows), kmer_content).numpy()
+    xla = np.asarray(jax_readfilters.low_entropy_batch(
+        *(jnp.asarray(x) for x in rows), kmer_content))
+    np.testing.assert_array_equal(plain, xla)
+    native = np.zeros(len(codes), np.uint8)
+    harness.le_rows_kernel(_ptr(packed), _ptr(meta), _ptr(native),
+                           len(codes), packed.shape[1])
+    np.testing.assert_array_equal(native != 0, plain)
+    return plain
+
+
+# widths on and off a multiple of four codes (whole byte pairs, then the
+# rest one at a time), from a few byte pairs to a few hundred
+@pytest.mark.parametrize("L", [150, 37, 149, 64, 511, 1021])
+@pytest.mark.parametrize("kmer_content", [0.6, 0.3])
+def test_low_entropy_packed_kernel_matches_plain_and_jax(harness, L,
+                                                         kmer_content):
+    plain = _low_entropy_through(harness, _low_entropy_edge_rows(3, 256, L),
+                                 kmer_content)
+    assert 0 < plain.sum() < len(plain)
+    assert not plain[256:259].any()      # lengths 0-2 never flag
+
+
+# 3,072 codes: the packed counters' widest rows (a homopolymer selects its
+# 3-mer 1,023 times); 3,100: the route with three counters a 3-mer
+@pytest.mark.parametrize("L", [3072, 3100])
+def test_low_entropy_long_rows_match_plain_and_jax(harness, L):
+    plain = _low_entropy_through(harness, _low_entropy_edge_rows(5, 8, L),
+                                 0.6)
+    assert 0 < plain.sum() < len(plain)
+
+
 # stripes of 1, 2, 4, 8 and 16 read positions a lane; L not a multiple of 32
 # and W < L among them
 @pytest.mark.parametrize("seed,n,L,W", [(1, 12, 20, 50), (2, 12, 37, 300),
@@ -445,3 +569,134 @@ def test_smith_waterman_cell_update_matches_plain_and_jax(harness, seed, n,
         jnp.asarray(reads), jnp.asarray(windows), match, mismatch, gap))
     np.testing.assert_array_equal(plain, xla)
     assert plain.min() == 0 and plain.max() > 8
+
+
+# odd batches (the last row beside the all-PAD dummy), a one-row batch, PAD
+# inside reads and windows, both score sets, and each row in either half:
+# the batch reversed pairs every row with another partner
+@pytest.mark.parametrize("seed,n,L,W", [(6, 13, 37, 300), (7, 1, 256, 256),
+                                        (8, 7, 100, 64)])
+def test_smith_waterman_pair_warp_odd_batches(harness, seed, n, L, W):
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    from .test_torch_realign import _sw_rows
+
+    reads, windows = _sw_rows(seed, n + 2, L, W)
+    reads, windows = reads[:n].copy(), windows[:n].copy()
+    rng = np.random.default_rng(seed)
+    reads[rng.random(reads.shape) < 0.02] = PAD_CODE
+    windows[rng.random(windows.shape) < 0.02] = PAD_CODE
+    for match, mismatch, gap in ((1, -1, -1), (2, -3, -2)):
+        plain = realign.smith_waterman_scores(
+            torch.from_numpy(reads), torch.from_numpy(windows), match,
+            mismatch, gap).numpy()
+        for order in (slice(None), slice(None, None, -1)):
+            r = np.ascontiguousarray(reads[order])
+            w = np.ascontiguousarray(windows[order])
+            native = np.zeros(n, np.int32)
+            harness.sw_rows(_ptr(r), _ptr(w), _ptr(native), n, L, W, match,
+                            mismatch, gap)
+            np.testing.assert_array_equal(native, plain[order])
+    xla = np.asarray(jax_realign.smith_waterman_scores(
+        jnp.asarray(reads), jnp.asarray(windows), match, mismatch, gap))
+    np.testing.assert_array_equal(plain, xla)
+    assert plain.max() > 8
+
+
+def _halves(x):
+    return [int(np.int16(np.uint16((x >> (16 * k)) & 0xFFFF)))
+            for k in (0, 1)]
+
+
+def _word(lo, hi):
+    return (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)
+
+
+def _wrap16(x):
+    return int(np.int16(np.uint16(x & 0xFFFF)))
+
+
+# per-halfword scalar math of each 16x2 primitive
+_SW_PRIMITIVES = {
+    "add.s16x2": (0, lambda a, b, c: _wrap16(a + b)),
+    "max.s16x2": (1, lambda a, b, c: max(a, b)),
+    "viaddmax_s16x2_relu": (2, lambda a, b, c: max(_wrap16(a + b), c, 0)),
+}
+_EDGE_HALVES = [0, 1, -1, 2, -2, 127, -128, 8191, -8192, 16383, -16384,
+                32767, -32768]
+
+
+@pytest.mark.parametrize("name", list(_SW_PRIMITIVES) + ["prmt"])
+def test_smith_waterman_primitive_emulation(harness, name):
+    """Each 16x2 primitive's host emulation against per-halfword scalar
+    math on random and edge halves; prmt against its byte selection with
+    sign replication, and on the selectors and score tables K3 builds."""
+    rng = np.random.default_rng(11)
+    halves = _EDGE_HALVES + rng.integers(-32768, 32768, 40).tolist()
+    words = [_word(lo, hi) for lo in _EDGE_HALVES for hi in halves[::3]]
+    words += [int(x) for x in rng.integers(0, 1 << 32, 200, np.uint64)]
+    if name != "prmt":
+        which, scalar = _SW_PRIMITIVES[name]
+        for k in range(300):
+            a, b, c = (words[(k * m + j) % len(words)]
+                       for m, j in ((7, 0), (11, 3), (13, 5)))
+            got = harness.sw_primitive(which, a, b, c)
+            want = [scalar(x, y, z) for x, y, z in zip(
+                _halves(a), _halves(b), _halves(c))]
+            assert _halves(got) == want, (name, hex(a), hex(b), hex(c))
+        return
+    selectors = [int(x) for x in rng.integers(0, 1 << 16, 200)]
+    # K3's selectors: read codes 0-4 of both rows
+    selectors += [ca | ((ca | 8) << 4) | ((cb | 4) << 8) | ((cb | 12) << 12)
+                  for ca in range(5) for cb in range(5)]
+    for k, sel in enumerate(selectors):
+        lo, hi = words[k % len(words)], words[(3 * k + 1) % len(words)]
+        data = lo | (hi << 32)
+        want = 0
+        for i in range(4):
+            n = (sel >> (4 * i)) & 0xF
+            byte = (data >> (8 * (n & 7))) & 0xFF
+            if n & 8:
+                byte = 0xFF if byte & 0x80 else 0
+            want |= byte << (8 * i)
+        assert harness.sw_primitive(3, lo, hi, sel) == want
+    # the score table picks s - gap, sign-extended, for each code pair
+    for match, mismatch, gap in ((1, -1, -1), (2, -3, -2), (5, -100, 20)):
+        mis = (mismatch - gap) & 0xFF
+        flip = ((match - gap) & 0xFF) ^ mis
+        for wa in range(4):
+            for wb in range(4):
+                t0 = (mis * 0x01010101) ^ (flip << (8 * wa))
+                t1 = (mis * 0x01010101) ^ (flip << (8 * wb))
+                for ca in range(4):
+                    for cb in range(4):
+                        sel = (ca | ((ca | 8) << 4) | ((cb | 4) << 8)
+                               | ((cb | 12) << 12))
+                        got = _halves(harness.sw_primitive(3, t0, t1, sel))
+                        assert got == [
+                            (match if ca == wa else mismatch) - gap,
+                            (match if cb == wb else mismatch) - gap]
+
+
+@pytest.mark.parametrize("L,W,params,ok", [
+    (256, 256, (1, -1, -1), True),
+    (512, 8192, (15, -1, -1), True),     # 15 * 512 = 7680 < 2^13
+    (512, 256, (16, -1, -1), False),     # 16 * 512 = 8192
+    (513, 256, (1, -1, -1), False),      # past 16 positions a lane
+    (256, 256, (1, -129, -1), True),     # mismatch - gap = -128
+    (256, 256, (1, -130, -1), False),    # -129
+    (256, 256, (1, -1, 1), True),        # 256 + 512 < 2^13
+    (512, 8192, (1, -1, 1), False),      # +1 a gap over L + W
+    (100, 20, (1, -200, -200), False),   # match - gap = 201
+    (10, 10, (-20000, -20000, -20000), False),  # |gap| > 2^14
+])
+def test_smith_waterman_guard(L, W, params, ok):
+    """K3's 16-bit guard, decided from shapes and scores alone: a refused
+    call raises ValueError before anything reaches the card."""
+    from arriba_tpu_torch import kernels
+
+    if ok:
+        kernels.sw_guard(L, W, *params)
+    else:
+        with pytest.raises(ValueError):
+            kernels.sw_guard(L, W, *params)

@@ -109,6 +109,125 @@ def test_smith_waterman_kernel_matches_plain(cuda, L, W):
                                reads, windows, *params))
 
 
+# odd batches (the last warp pairs its row with an all-PAD dummy), a
+# one-row batch, and a stripe of 4 against windows not a multiple of 4 wide
+# (the byte loads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,W", [(1, 256, 256), (511, 256, 256),
+                                   (33, 37, 300), (17, 100, 97)])
+def test_smith_waterman_kernel_odd_batches(cuda, N, L, W):
+    from chip_smoke import smith_waterman_inputs
+
+    # row 0 of smith_waterman_inputs is an empty read: start at row 1
+    reads, windows = (torch.from_numpy(x[1:]).to(cuda) for x in
+                      smith_waterman_inputs(n=N + 1, L=L, W=W))
+    for params in ((1, -1, -1), (2, -3, -2)):
+        got = realign.smith_waterman_scores(reads, windows, *params)
+        want = realign.smith_waterman_scores_plain(reads, windows, *params)
+        assert torch.equal(got, want)
+    assert int(want.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,W,params", [(513, 256, (1, -1, -1)),
+                                        (512, 256, (16, -1, -1)),
+                                        (256, 256, (1, -200, -1))])
+def test_smith_waterman_kernel_refuses_past_its_guard(cuda, L, W, params):
+    reads = torch.zeros(4, L, dtype=torch.uint8, device=cuda)
+    windows = torch.zeros(4, W, dtype=torch.uint8, device=cuda)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError):
+        realign.smith_waterman_scores(reads, windows, *params)
+    assert kernels.launch_counts == before
+
+
+# a byte above code 4 in a read or a window: K3 reads code bit 2 as PAD and
+# ships window codes in 3 bits, so smith_waterman refuses such a byte
+@pytest.mark.cuda
+@pytest.mark.parametrize("where,value", [("reads", 5), ("windows", 16)])
+def test_smith_waterman_kernel_refuses_bytes_above_code_4(cuda, where,
+                                                          value):
+    reads = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
+    windows = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
+    (reads if where == "reads" else windows)[2, 7] = value
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="codes 0-4"):
+        realign.smith_waterman_scores(reads, windows)
+    assert kernels.launch_counts == before
+
+
+# rows past the packed counters' 3,072 codes (the three-counter kernel),
+# the packed counters' widest rows, and a batch of rows too short to scan
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,short", [(3100, False), (3072, False),
+                                     (150, True)])
+def test_low_entropy_kernel_routes(cuda, L, short):
+    import numpy as np
+
+    from chip_smoke import low_entropy_inputs
+
+    codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs(n=1000, L=L)
+    if short:
+        lengths = lengths % 4
+    th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
+    meta = torch.from_numpy(np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1)
+                            .astype(np.int32)).to(cuda)
+    packed = torch.from_numpy(readfilters.pack_codes(codes)).to(cuda)
+    got = readfilters._low_entropy_core_packed(packed, L, meta)
+    want = readfilters._low_entropy_core_plain(
+        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
+    assert torch.equal(got, want)
+    assert (int(want.sum()) == 0) if short else (0 < int(want.sum()) < 1000)
+
+
+def test_smith_waterman_wrapper_checks_its_guard_before_launch(monkeypatch):
+    """The wrapper refuses shapes and scores past K3's 16-bit guard before
+    anything is launched (a CUDA-free check: the tensor checks are stubbed
+    and a launch would fail the test)."""
+    def no_launch(*args):
+        raise AssertionError("launched past the guard")
+
+    monkeypatch.setattr(kernels, "_require", lambda *args: None)
+    monkeypatch.setattr(kernels, "_launch", no_launch)
+    out = torch.zeros(2, dtype=torch.int32)
+    for L, W, params in ((513, 64, (1, -1, -1)), (512, 64, (16, -1, -1)),
+                         (64, 64, (1, -1, -200))):
+        with pytest.raises(ValueError):
+            kernels.launch_smith_waterman(
+                torch.zeros(2, L, dtype=torch.uint8),
+                torch.zeros(2, W, dtype=torch.uint8), out, *params)
+    with pytest.raises(AssertionError, match="launched"):
+        kernels.launch_smith_waterman(torch.zeros(2, 256, dtype=torch.uint8),
+                                      torch.zeros(2, 256, dtype=torch.uint8),
+                                      out)
+
+
+@pytest.mark.parametrize("where,value,ok", [
+    ("reads", 4, True), ("windows", 4, True), ("reads", 5, False),
+    ("windows", 7, False), ("reads", 16, False), ("windows", 255, False),
+])
+def test_smith_waterman_codes_guard(where, value, ok):
+    """K3 takes codes 0-4: sw_codes_guard passes those and refuses any
+    larger byte, and smith_waterman refuses it before its tensor checks and
+    its launch (a CUDA-free check on CPU tensors)."""
+    reads = torch.randint(0, 5, (3, 40), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(value))
+    windows = torch.randint(0, 5, (3, 70), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(7))
+    (reads if where == "reads" else windows)[1, 13] = value
+    before = dict(kernels.launch_counts)
+    if ok:
+        kernels.sw_codes_guard(reads, windows)
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            kernels.smith_waterman(reads, windows)
+    else:
+        for call in (kernels.sw_codes_guard, kernels.smith_waterman):
+            with pytest.raises(ValueError, match="codes 0-4"):
+                call(reads, windows)
+    kernels.sw_codes_guard(reads[:0], windows[:0])  # empty inputs pass
+    assert kernels.launch_counts == before
+
+
 _AW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
             torch.ones(2, 16, dtype=torch.uint8),
             torch.zeros(2, 5, dtype=torch.int32))
