@@ -13,16 +13,16 @@ exactly is refused before launch: K3's scores past 16 bits by shape and
 parameters (``sw_guard``), and K3's bytes above code 4 by
 ``smith_waterman``, which reads the inputs' largest byte from the card
 (``sw_codes_guard``) before it launches. ``accept_wavefront``,
-``low_entropy`` and ``smith_waterman`` allocate the output and return
-bool verdicts (int32 scores for the last). The plain PyTorch versions (the CPU path and the
-reference the kernels are held against) live beside their callers in
-``ops/``.
+``low_entropy``, ``smith_waterman`` and ``mxu_kmer_screen`` allocate the
+output and return bool verdicts (int32 scores for ``smith_waterman``). The
+plain PyTorch versions (the CPU path and the reference the kernels are held
+against) live beside their callers in ``ops/``.
 """
 
 from __future__ import annotations
 
 launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
-                 "smith_waterman": 0}
+                 "smith_waterman": 0, "mxu_kmer_screen": 0}
 
 
 def reset_launch_counts() -> None:
@@ -197,3 +197,33 @@ def smith_waterman(reads, windows, match: int = 1, mismatch: int = -1,
     out = torch.empty(reads.shape[0], dtype=torch.int32, device=reads.device)
     launch_smith_waterman(reads, windows, out, match, mismatch, gap)
     return out
+
+
+def launch_mxu_kmer_screen(reads, windows, out) -> None:
+    """K4 (csrc/mxu_kmer_screen.cu) into out, uint8 [N]: 1 where some
+    8-mer of the read occurs in the window, else 0. reads uint8 [N, L] and
+    windows uint8 [N, W] hold codes; a byte above 3 (PAD 4 or larger) one-
+    hots to zero, so no 8-mer that covers one matches. No launch for N = 0
+    (nothing to write)."""
+    import torch
+
+    _require(reads, "reads", torch.uint8, 2)
+    _require(windows, "windows", torch.uint8, 2)
+    _require(out, "out", torch.uint8, 1)
+    n, L = reads.shape
+    W = windows.shape[1]
+    if windows.shape[0] != n or out.shape[0] != n:
+        raise ValueError("reads, windows and out must have the same rows")
+    if n == 0:
+        return
+    _launch("mxu_kmer_screen", reads.data_ptr(), windows.data_ptr(),
+            out.data_ptr(), n, L, W)
+
+
+def mxu_kmer_screen(reads, windows):
+    """K4: bool [N] shared-8-mer verdicts (see launch_mxu_kmer_screen)."""
+    import torch
+
+    out = torch.empty(reads.shape[0], dtype=torch.uint8, device=reads.device)
+    launch_mxu_kmer_screen(reads, windows, out)
+    return out.view(torch.bool)

@@ -21,7 +21,8 @@ import sys
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman")
+KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman",
+           "mxu_kmer_screen")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,9 @@ _SIGNATURES = {
     "smith_waterman": ("arriba_smith_waterman",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p]),
+    "mxu_kmer_screen": ("arriba_mxu_kmer_screen",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p]),
 }
 
 _loaded: dict = {}

@@ -21,6 +21,10 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
    wavefront. A device ACCEPT is sound (align() necessarily accepts);
    splice/deletion recursion chains stay host-only, so a device reject
    decides nothing.
+   `mxu_shared_kmer_mask` gives the same verdict through a one-hot
+   product with a fused any(dot == 8): the hand-written kernel K4 on the
+   int8 tensor cores (kernels/csrc/mxu_kmer_screen.cu) for CUDA tensors,
+   `mxu_shared_kmer_mask_plain` on the CPU. No CLI path uses it.
 3. `realign_step`, the data-parallel path's fused prefilter and scoring
    step: the 8-mer screen plus `smith_waterman_scores`, the best local
    alignment score per row. CUDA tensors run the hand-written kernel K3
@@ -63,6 +67,62 @@ def shared_kmer_mask(reads: torch.Tensor, windows: torch.Tensor,
     idx = idx.clamp(max=window_kmers.shape[1] - 1)
     found = torch.gather(window_kmers, 1, idx) == read_kmers
     return (found & (read_kmers >= 0)).any(dim=1)
+
+
+def mxu_shared_kmer_mask_plain(reads: torch.Tensor, windows: torch.Tensor,
+                               k: int = SEED_KMER_LENGTH,
+                               w_chunk: int = 512) -> torch.Tensor:
+    """The plain PyTorch version of K4, and the JAX package's
+    mxu_shared_kmer_mask step for step: each k-mer one-hot per base in 4k
+    lanes (a byte above 3, PAD included, one-hots to zeros, so a k-mer
+    covering one cannot reach k), a batched product against the window's
+    k-mers in w_chunk tiles, any(dot == k). The dots are integers of at
+    most 4k: int32 on the CPU, float32 (exact for them) on the card, where
+    PyTorch has no integer batched product. bool [N]."""
+    n, L = reads.shape
+    W = windows.shape[1]
+    device = reads.device
+    R, WK = L - k + 1, W - k + 1
+    verdict = torch.zeros(n, dtype=torch.bool, device=device)
+    if R <= 0 or WK <= 0 or n == 0:
+        return verdict
+    dtype = torch.float32 if reads.is_cuda else torch.int32
+    bases = torch.arange(4, device=device)
+
+    def onehot(codes, n_pos):
+        stacked = torch.stack([codes[:, j:j + n_pos] for j in range(k)], -1)
+        return (stacked[..., None] == bases).to(dtype).reshape(
+            codes.shape[0], n_pos, 4 * k)
+
+    read_oh = onehot(reads, R)                                # [N, R, 4k]
+    n_chunks = -(-WK // w_chunk)
+    pad = torch.full((n, n_chunks * w_chunk + k - 1 - W), PAD_CODE,
+                     dtype=windows.dtype, device=device)
+    win_pad = torch.cat([windows, pad], dim=1)
+    for lo in range(0, n_chunks * w_chunk, w_chunk):
+        win_oh = onehot(win_pad[:, lo:lo + w_chunk + k - 1], w_chunk)
+        dots = torch.bmm(read_oh, win_oh.transpose(1, 2))     # [N, R, Wc]
+        verdict |= (dots == k).flatten(1).any(dim=1)
+    return verdict
+
+
+def mxu_shared_kmer_mask(reads: torch.Tensor, windows: torch.Tensor,
+                         k: int = SEED_KMER_LENGTH,
+                         w_chunk: int = 512) -> torch.Tensor:
+    """bool [N]: does any k-mer of read n occur in window n, as the one-hot
+    product decides it (mxu_shared_kmer_mask_plain)? CUDA tensors run the
+    hand-written kernel K4 (kernels/csrc/mxu_kmer_screen.cu, int8 tensor
+    cores; k = 8 only, and w_chunk, a tiling of the plain version, does not
+    change the verdict); CPU tensors the plain version. No CLI path calls
+    it, as in the JAX package (whose bench does)."""
+    if reads.is_cuda:
+        if k != SEED_KMER_LENGTH:
+            raise ValueError(f"K4 screens {SEED_KMER_LENGTH}-mers, not "
+                             f"{k}-mers")
+        from .. import kernels
+        return kernels.mxu_kmer_screen(reads.contiguous(),
+                                       windows.contiguous())
+    return mxu_shared_kmer_mask_plain(reads, windows, k, w_chunk)
 
 
 def smith_waterman_scores_plain(reads, windows, match: int = 1,

@@ -5,10 +5,10 @@
     python3 chip_smoke.py --against KERNEL SOURCE [SOURCE ...]
     python3 chip_smoke.py --instruction-rates
 
-The second form only times one kernel (accept_wavefront, low_entropy or
-smith_waterman) built from other sources against this checkout's build
-(compare); a SOURCE is a csrc directory, such as an earlier commit's
-unpacked with ``git archive``. ``--k1-against SOURCE ...`` is ``--against
+The second form only times one kernel (accept_wavefront, low_entropy,
+smith_waterman or mxu_kmer_screen) built from other sources against this
+checkout's build (compare); a SOURCE is a csrc directory, such as an
+earlier commit's unpacked with ``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
 16x2 instructions K3's cells run against LOP3's (instruction_rates).
 Phases of the first (any failure exits non-zero, and no result line is
@@ -25,33 +25,50 @@ printed):
    (ACCEPT_KINDS) and on two low-complexity batches at that shape
    (accept_cases); K2
    (low-entropy scan) at 131,072 reads x 150 codes; K3 (Smith-Waterman
-   scores) at 65,536 rows x 256 read codes x 256 window codes. Kernel time
+   scores) at 65,536 rows x 256 read codes x 256 window codes; K4 (the
+   one-hot 8-mer screen on the int8 tensor cores) at the JAX package's
+   bench shape, 512 x 152 x 8,008, on its bench rows, on rows with no hit
+   (the full product), with PAD tails and bytes above 4, and at 333 x 45
+   x 1,001 (MXU_CASES). Kernel time
    is the median of 20 CUDA-event timed windows after a warm-up, inputs
    checked and output allocated ahead: single launches for K1, whose output
-   is zeroed before each, windows of 10 launches for K2 and K3, counted as
-   their mean; the bound is the larger of bytes over the memory rate and
+   is zeroed before each, windows of 10 launches for K2, K3 and K4, counted
+   as their mean; the bound is the larger of bytes over the memory rate and
    the operations the algorithm needs over the card's rate for them. K1's
    operations are counted from its inputs (accept_work: window positions
-   scanned, cells walked on the candidate diagonals).
+   scanned, cells walked on the candidate diagonals), K4's too (mxu_work:
+   each row's read k-mers against its window k-mers up to the first that
+   matches, 32 multiply-adds a pair), at the int8 tensor-core rate; K4's library_ms is one torch.bmm of the one-hot
+   encodings (onehot_product_ms).
 3. The main path: the genome-scale 150 bp sample (bench_samples.build_tier2)
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
    ARRIBA_TPU_TORCH_NO_NATIVE_EVENT=1), which runs K2 in the read cascade and
    K1 in filter_mismappers; (B) the host path (DEVICE=off); (C) offload with
-   the default native event stages (K2 only); (D) C with the mid-cascade
-   statistics over four row shards on the card
-   (ARRIBA_TPU_TORCH_SHARDED_STATS=4); (E) C with them across one NCCL rank
-   per card (=<cards>procs), which also merges the candidate clusters and
-   checks them against the host fusion table. The output files and every
-   stage counter must be byte-equal across the runs, and K1 and K2 must have
-   launched in run A. Each run reports its seconds and those of the
-   offloaded ops. The sample is built at full size.
+   the default native event stages (K2 only). Then, on the same sample with
+   a tenth of its chimeric fragments (build_tier2_tenth), its own host run
+   (B10) and: (D) C with the mid-cascade statistics over four row shards on
+   the card (ARRIBA_TPU_TORCH_SHARDED_STATS=4); (E) C with them across one
+   NCCL rank per card (=<cards>procs), which also merges the candidate
+   clusters and checks them against the host fusion table. Both run the
+   Python event stages from the e-value stage on, so K1 and the 8-mer
+   screen too. The output files and every stage counter must be byte-equal
+   across the runs of each sample, and K1 and K2 must have launched in run
+   A. Each run reports its seconds and those of the offloaded ops.
 4. The flagship step (arriba_tpu_torch.entry) on the card against the CPU.
 5. The data-parallel path at full size: entry.sharded_check on run A's
    pipeline state at 1 and 4 row shards on the card (the filter step over
    every tensorized mate, the realignment step with K3, the cluster step
    over the whole fusion table, the stats step), equal between the two and
    with the host fusion table; K3 must have launched in this phase.
+6. K4's caller: realign.mxu_shared_kmer_mask on the bench rows, as the JAX
+   package's bench calls its twin, equal to the sorted screen (mxu_path).
+7. The cohort runner: python -m arriba_tpu_torch.parallel.cohort on the
+   genome-scale sample listed three times, three workers on the one card
+   under run C's environment with jax blocked; each worker's outputs equal
+   run C's and each launched K2 (cohort_phase).
+8. A downstream tool on the card's machine: convert_fusions_to_vcf on run
+   C's fusions.tsv with jax blocked (tool_phase).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -81,6 +98,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 # clock, 16.7 T/s. (The data sheet's 67 TFLOP/s counts float32 fused
 # multiply-adds, 4x the integer rate, and is no bound for integer work.)
 MEMORY_BYTES_PER_S = 3.35e12
+# K4's bound: the dense int8 tensor-core rate (NVIDIA's H100 SXM data
+# sheet), 2 operations a multiply-add
+INT8_OPS_PER_S = 1.979e15
 SM_CLOCK_HZ = 1.98e9
 INT_PER_CLOCK = 64
 INT_OPS_PER_S = INT_PER_CLOCK * 132 * SM_CLOCK_HZ
@@ -176,9 +196,10 @@ def cuda_ms(fn, runs: int, setup=None, warm_up: bool = True,
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = INT_OPS_PER_S) -> tuple:
     byte_ms = n_bytes / MEMORY_BYTES_PER_S * 1e3
-    op_ms = n_ops / INT_OPS_PER_S * 1e3
+    op_ms = n_ops / ops_per_s * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -546,6 +567,200 @@ def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
 K2_K3_BATCH = 10
 
 
+def mxu_inputs(case: str, seed: int = 31, N: int = 512, L: int = 152,
+               W: int = 8008):
+    """K4's phase-2 inputs (reads uint8 [N, L], windows uint8 [N, W]) by
+    case. 'bench': the JAX package's bench row (bench.py:650-655), random
+    codes 0-3 with a read 8-mer planted in the window of every other row;
+    at 145 x 8,001 k-mer pairs a row, ~18 chance hits are expected too, so
+    nearly every row stops early. 'no_hit': reads over codes {0, 1},
+    windows over {2, 3}: no shared 8-mer anywhere, the full product.
+    'pad': the no_hit background with PAD (4) tails and bytes 5-255, and
+    by row % 4 a clean planted 8-mer (a hit), a planted 8-mer holding a
+    byte above 4 in both (none: such a byte one-hots to zero), one holding
+    PAD (none), nothing (none). 'odd': N, L and W that are not multiples
+    of the 16 x 8 tiles (333 x 45 x 1,001), seeds planted in every third
+    row."""
+    import numpy as np
+
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    rng = np.random.default_rng(seed)
+    if case == "odd":
+        N, L, W = 333, 45, 1001
+    if case in ("bench", "odd"):
+        reads = rng.integers(0, 4, (N, L)).astype(np.uint8)
+        windows = rng.integers(0, 4, (N, W)).astype(np.uint8)
+        for row in range(0, N, 2 if case == "bench" else 3):
+            at = int(rng.integers(0, W - 8))
+            start = min(40, L - 8)
+            windows[row, at:at + 8] = reads[row, start:start + 8]
+        return reads, windows
+    reads = rng.integers(0, 2, (N, L)).astype(np.uint8)
+    windows = rng.integers(2, 4, (N, W)).astype(np.uint8)
+    if case == "no_hit":
+        return reads, windows
+    if case != "pad":
+        raise ValueError(f"no K4 case {case}")
+    odd = rng.integers(5, 256, (N, L)) * (rng.random((N, L)) < 0.02)
+    reads = np.where(odd > 0, odd, reads).astype(np.uint8)
+    odd = rng.integers(5, 256, (N, W)) * (rng.random((N, W)) < 0.02)
+    windows = np.where(odd > 0, odd, windows).astype(np.uint8)
+    for row in range(N):
+        reads[row, int(rng.integers(L // 2, L + 1)):] = PAD_CODE
+        windows[row, int(rng.integers(W // 2, W + 1)):] = PAD_CODE
+        seed_kmer = rng.integers(0, 4, 8).astype(np.uint8)
+        kind = row % 4
+        if kind == 3:
+            continue
+        if kind == 1:
+            seed_kmer[3] = int(rng.integers(5, 256))
+        elif kind == 2:
+            seed_kmer[5] = PAD_CODE
+        at, start = int(rng.integers(0, W // 2 - 8)), int(rng.integers(
+            0, L // 2 - 8))
+        reads[row, start:start + 8] = seed_kmer
+        windows[row, at:at + 8] = seed_kmer
+    return reads, windows
+
+
+def mxu_work(reads, windows) -> dict:
+    """The work K4's function needs on these inputs, counted with plain
+    torch ops on their device: each row's R = L - 7 read k-mers against its
+    window k-mers, in order, up to and including the first equal to a read
+    k-mer (both over codes 0-3 only), or against all WK = W - 7 of them for
+    a row with none, 32 multiply-adds a pair ("macs", what the bound
+    counts); the full product's multiply-adds, N x R x WK x 32. Also, as a
+    diagnostic of the kernel's own waste, the 16 x 8 x 32 MMA tiles its
+    order issues up to each row's first hit ("tiles": whole read tiles
+    against whole window tiles), each row's first such window tile (-1 for
+    none) and its verdict, for checks against the plain version and the
+    kernel's emulation."""
+    import torch
+
+    N, L = reads.shape
+    W = windows.shape[1]
+    R, WK = L - 7, W - 7
+    first = torch.full((N,), -1, dtype=torch.int64, device=reads.device)
+    if R <= 0 or WK <= 0:
+        return {"macs": 0, "tiles": 0, "full_macs": 0, "first_tile": first,
+                "verdict": first >= 0}
+
+    def kmers(x, n_pos, invalid):
+        value = torch.zeros(N, n_pos, dtype=torch.int64, device=x.device)
+        valid = torch.ones(N, n_pos, dtype=torch.bool, device=x.device)
+        for t in range(8):
+            code = x[:, t:t + n_pos].long()
+            value = value * 4 + code.clamp(max=3)
+            valid &= code <= 3
+        return torch.where(valid, value, invalid)
+
+    read_kmers = torch.sort(kmers(reads, R, -1), dim=1).values
+    window_kmers = kmers(windows, WK, -2)
+    index = torch.searchsorted(read_kmers, window_kmers).clamp(max=R - 1)
+    found = torch.gather(read_kmers, 1, index) == window_kmers
+    hit = found.any(dim=1)
+    first_kmer = found.to(torch.uint8).argmax(dim=1)
+    macs = int(torch.where(hit, first_kmer + 1, WK).sum()) * R * 32
+    first = torch.where(hit, first_kmer // 8, -1)
+    window_tiles = -(-WK // 8)
+    read_tiles = -(-R // 16)
+    tiles = int(torch.where(hit, first + 1, window_tiles).sum()) * read_tiles
+    return {"macs": macs, "tiles": tiles, "full_macs": N * R * WK * 32,
+            "first_tile": first, "verdict": hit}
+
+
+# K4's phase-2 cases (mxu_inputs), the first at the bench's shape
+MXU_CASES = ("bench", "no_hit", "pad", "odd")
+
+
+def onehot_product_ms(reads, windows) -> float:
+    """One torch.bmm of the float16 one-hot encodings of every read and
+    window k-mer (exact: 0/1 products, sums of at most 32): the product
+    K4 fuses with its test, alone, as a library yardstick the port never
+    calls. Median of 5 CUDA-event timed calls."""
+    import torch
+
+    def onehot(x, n_pos):
+        stacked = torch.stack([x[:, j:j + n_pos] for j in range(8)], -1)
+        return (stacked[..., None] == torch.arange(4, device=x.device)).to(
+            torch.float16).reshape(len(x), n_pos, 32)
+
+    a = onehot(reads, reads.shape[1] - 7)
+    b = onehot(windows, windows.shape[1] - 7).transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.bmm(a, b), 5)
+    del a, b
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_mxu() -> dict:
+    """K4 through realign.mxu_shared_kmer_mask against its plain version on
+    the card, exactly, on each case of MXU_CASES, with each case's launch
+    time (median of 20 windows of K2_K3_BATCH launches), its bounds at the
+    int8 tensor-core rate (the k-mer pairs up to each row's first hit,
+    mxu_work, and the full product) and the plain version's time; library_ms (the bench and
+    no_hit cases) is onehot_product_ms. Returns K4's record."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    cases = {}
+    for name in MXU_CASES:
+        reads, windows = mxu_inputs(name)
+        r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
+        got = realign.mxu_shared_kmer_mask(r, w)
+        want = realign.mxu_shared_kmer_mask_plain(r, w)
+        err = int((got.int() - want.int()).abs().max())
+        work = mxu_work(r, w)
+        hits = int(want.sum())
+        expected = {"no_hit": hits == 0, "bench": hits == len(reads),
+                    "pad": want.cpu().tolist() == [row % 4 == 0 for row in
+                                                   range(len(reads))],
+                    "odd": 0 < hits < len(reads)}[name]
+        if err != 0 or not torch.equal(work["verdict"], want):
+            raise SystemExit(f"K4 disagrees with its plain version ({name})")
+        if not expected:
+            raise SystemExit(f"K4's {name} case does not give its verdicts")
+        out = torch.empty(len(reads), dtype=torch.uint8, device="cuda")
+        ms = cuda_ms(lambda: kernels.launch_mxu_kmer_screen(r, w, out), 20,
+                     batch=K2_K3_BATCH)
+        plain_ms = cuda_ms(lambda: realign.mxu_shared_kmer_mask_plain(r, w),
+                           3)
+        n_bytes = reads.nbytes + windows.nbytes + len(reads)
+        bound_ms, bound_by = bound(n_bytes, 2 * work["macs"],
+                                   INT8_OPS_PER_S)
+        full_ms, _ = bound(n_bytes, 2 * work["full_macs"], INT8_OPS_PER_S)
+        cases[name] = {"rows": len(reads), "width": [reads.shape[1],
+                                                     windows.shape[1]],
+                       "hits": hits, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "macs": work["macs"],
+                       "tiles": work["tiles"],
+                       "full_product_bound_ms": full_ms}
+        if name in ("bench", "no_hit"):
+            cases[name]["library_ms"] = onehot_product_ms(r, w)
+        log(f"K4 {name}: {hits}/{len(reads)} rows share an 8-mer, equal to "
+            f"the plain version; {ms:.4f} ms a launch, plain {plain_ms:.4f} "
+            f"ms; {2 * work['macs']} int8 operations to the first hits "
+            f"({work['tiles']} MMA tiles in K4's order), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%}); full "
+            f"product {full_ms:.4f} ms ({full_ms / ms:.1%})"
+            + (f"; torch.bmm of the one-hots {cases[name]['library_ms']:.4f}"
+               f" ms" if "library_ms" in cases[name] else ""))
+    main = cases["bench"]
+    return {"name": "mxu_kmer_screen", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/mxu_kmer_screen.cu",
+            "replaces": "arriba_tpu/ops/realign.py:79",
+            "max_abs_err": max(case["max_abs_err"] for case in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "full_product_bound_ms": main["full_product_bound_ms"],
+            "cases": cases}
+
+
 def check_kernels() -> list:
     import numpy as np
     import torch
@@ -653,6 +868,9 @@ def check_kernels() -> list:
         "replaces": "arriba_tpu/ops/realign.py:162",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    # K4: the one-hot 8-mer screen on the int8 tensor cores
+    records.append(check_mxu())
     return records
 
 
@@ -875,11 +1093,236 @@ def check_sharded(state, n: int) -> int:
     return launches["smith_waterman"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the one-hot 8-mer screen as its caller drives it
+
+def mxu_path() -> int:
+    """realign.mxu_shared_kmer_mask on the bench's inputs, as the JAX
+    package's bench calls its twin (bench.py:650-660; no CLI path calls
+    it), held against the sorted 8-mer screen on the card. Returns K4's
+    launches in it, counted from 0."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    r, w = (torch.from_numpy(x).to("cuda") for x in mxu_inputs("bench"))
+    kernels.reset_launch_counts()
+    verdict = realign.mxu_shared_kmer_mask(r, w)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["mxu_kmer_screen"]
+    if not torch.equal(verdict, realign.shared_kmer_mask(r, w)):
+        raise SystemExit("the one-hot 8-mer screen disagrees with the "
+                         "sorted screen")
+    log(f"mxu screen: {int(verdict.sum())}/{len(r)} rows share an 8-mer, "
+        f"equal to the sorted screen; kernel launches "
+        f"{dict(kernels.launch_counts)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3, runs D and E: a tenth of the sample's chimeric fragments
+
+def build_tier2_tenth(sample: pathlib.Path,
+                      out_dir: pathlib.Path) -> pathlib.Path:
+    """The genome-scale sample with a tenth of its chimeric fragments:
+    split fragments f<i> and discordant pairs d<i> with i % 10 == 0, and
+    every proper pair and viral fragment; its genome, annotation and
+    blacklist linked. Cached (out_dir/.complete)."""
+    import mmap
+
+    marker = out_dir / ".complete"
+    if marker.exists() and marker.read_text() == "tenth v1\n":
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in ("genome.fa", "genes.gtf", "blacklist.tsv"):
+        link = out_dir / name
+        if link.is_symlink() or link.exists():
+            link.unlink()
+        link.symlink_to(sample / name)
+    with open(sample / "aligned.sam", "rb") as src, \
+            open(out_dir / "aligned.sam", "wb") as dst:
+        # the proper pairs come first: copy them in bulk up to f0
+        with mmap.mmap(src.fileno(), 0, access=mmap.ACCESS_READ) as whole:
+            first = whole.find(b"\nf0\t") + 1
+        if first <= 0:
+            raise SystemExit("the sample has no split fragments")
+        remaining = first
+        while remaining:
+            block = src.read(min(remaining, 1 << 24))
+            dst.write(block)
+            remaining -= len(block)
+        for line in src:
+            if line[:1] in (b"f", b"d") and int(
+                    line[1:line.index(b"\t")]) % 10:
+                continue
+            dst.write(line)
+    marker.write_text("tenth v1\n")
+    return out_dir
+
+
+def reduced_runs(n_cards: int):
+    """(label, environment) of the runs on the tenth: its own host run,
+    then D and E (runs)."""
+    return (("B10", {"ARRIBA_TPU_TORCH_DEVICE": "off"}),) + runs(n_cards)[3:]
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the cohort runner and a downstream tool
+
+# Appended to import_blocker.py (jax and the JAX package unimportable) as
+# the sitecustomize of every Python process a phase starts: the port's CLI
+# (which leaves through os._exit) prints its kernel launch counts and the
+# nvcc builds it started to stderr as it exits.
+SITE_REPORT = r"""
+import json
+import subprocess
+
+_exit = os._exit
+_popen_init = subprocess.Popen.__init__
+_nvcc = []
+
+
+def _counting_init(self, args, *rest, **kwargs):
+    if isinstance(args, (list, tuple)) and str(args[0]).endswith("nvcc"):
+        _nvcc.append(os.path.basename(str(args[-1])))
+    _popen_init(self, args, *rest, **kwargs)
+
+
+def _report_and_exit(status):
+    kernels = sys.modules.get("arriba_tpu_torch.kernels")
+    if kernels is not None:
+        print("LAUNCH_COUNTS " + json.dumps(kernels.launch_counts),
+              file=sys.stderr, flush=True)
+        print("NVCC_BUILDS " + json.dumps(_nvcc), file=sys.stderr, flush=True)
+    _exit(status)
+
+
+subprocess.Popen.__init__ = _counting_init
+os._exit = _report_and_exit
+"""
+
+
+def site_env(work: pathlib.Path, env: dict) -> dict:
+    """os.environ with env, and a sitecustomize of import_blocker.py and
+    SITE_REPORT on PYTHONPATH before the repo."""
+    site = work / "site"
+    site.mkdir(parents=True, exist_ok=True)
+    (site / "sitecustomize.py").write_text(
+        (REPO / "import_blocker.py").read_text() + SITE_REPORT)
+    return dict(os.environ, **env, PYTHONPATH=os.pathsep.join(
+        [str(site), str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+
+
+def cohort_phase(sample: pathlib.Path, threads: int, outputs: tuple,
+                 seconds_c: float, n: int = 3) -> dict:
+    """python -m arriba_tpu_torch.parallel.cohort on a manifest of the
+    sample listed n times, n worker processes under run C's environment,
+    all on the one card, jax blocked in each (site_env). Each worker's
+    fusions.tsv and fusions.discarded.tsv must equal run C's (outputs), and
+    each must have launched K2 (its LAUNCH_COUNTS line in its run.log).
+    K2's library is deleted first, so the workers reach its first build
+    together: one must compile it and the others wait on the build lock and
+    load it (one nvcc in all, their NVCC_BUILDS lines). The card's memory
+    in use is sampled every 0.2 s while it runs."""
+    import shutil
+
+    import bench_samples
+    import torch
+
+    from arriba_tpu_torch.kernels import build
+
+    work = REPO / "build" / "chip_smoke" / "cohort"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    args = bench_samples.tier2_cli_args(sample)
+    alignments, common = args[1], args[2:]
+    manifest = work / "manifest.tsv"
+    manifest.write_text("".join(f"s{k}\t{alignments}\t{work / f's{k}'}\n"
+                                for k in range(n)))
+    env = site_env(work, dict(runs(1))["C"])
+    build.library_path("low_entropy").unlink()
+    free, total = torch.cuda.mem_get_info()
+    before = peak = total - free
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "arriba_tpu_torch.parallel.cohort",
+         str(manifest), "--processes", str(n), "--", *common, "-@",
+         str(max(1, threads // n))],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    while proc.poll() is None:
+        free, total = torch.cuda.mem_get_info()
+        peak = max(peak, total - free)
+        time.sleep(0.2)
+    seconds = time.perf_counter() - start
+    report = proc.communicate()[0]
+    logs = {k: (work / f"s{k}" / "run.log").read_text(errors="replace")
+            if (work / f"s{k}" / "run.log").exists() else ""
+            for k in range(n)}
+    if proc.returncode != 0:
+        raise SystemExit(f"the cohort exited {proc.returncode}:\n{report}\n"
+                         + "\n".join(log[-2000:] for log in logs.values()))
+    launches, builds = [], []
+    for k in range(n):
+        out = work / f"s{k}"
+        if ((out / "fusions.tsv").read_bytes(),
+                (out / "fusions.discarded.tsv").read_bytes()) != outputs:
+            raise SystemExit(f"cohort sample s{k}'s outputs differ from run "
+                             f"C's")
+        found = re.findall(r"^LAUNCH_COUNTS (.*)$", logs[k], re.M)
+        if not found or json.loads(found[-1])["low_entropy"] <= 0:
+            raise SystemExit(f"cohort sample s{k} did not run K2 on the "
+                             f"card:\n{logs[k][-2000:]}")
+        launches.append(json.loads(found[-1])["low_entropy"])
+        builds += json.loads(re.findall(r"^NVCC_BUILDS (.*)$", logs[k],
+                                        re.M)[-1])
+    if builds != ["low_entropy.cu"]:
+        raise SystemExit(f"the cohort's workers built K2 {len(builds)} "
+                         f"times, not once: {builds}")
+    per_worker = (peak - before) / n / 2**30
+    log(f"cohort: {n} samples in {n} workers on one card, {seconds:.3f} s "
+        f"wall (run C: {seconds_c:.3f} s for one); every worker's outputs "
+        f"equal run C's; K2 launches per worker {launches}, built by one of "
+        f"them while the others waited; card memory in "
+        f"use peaked {(peak - before) / 2**30:.2f} GiB above this "
+        f"process's ({per_worker:.2f} GiB a worker)")
+    return {"seconds": seconds, "launches": launches,
+            "gib_per_worker": per_worker}
+
+
+def tool_phase(sample: pathlib.Path, fusions: pathlib.Path) -> None:
+    """python -m arriba_tpu_torch.tools.convert_fusions_to_vcf on run C's
+    fusions.tsv with jax blocked (site_env): two BND records a fusion."""
+    work = REPO / "build" / "chip_smoke" / "tool"
+    vcf = work / "fusions.vcf"
+    env = site_env(work, {})
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "arriba_tpu_torch.tools.convert_fusions_to_vcf",
+         str(sample / "genome.fa"), str(fusions), str(vcf)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise SystemExit(f"convert_fusions_to_vcf exited {proc.returncode}:"
+                         f"\n{proc.stderr[-3000:]}")
+    lines = vcf.read_text().splitlines()
+    n_fusions = fusions.read_bytes().count(b"\n") - 1
+    records = [line for line in lines if not line.startswith("#")]
+    if lines[0] != "##fileformat=VCFv4.3" or len(records) != 2 * n_fusions:
+        raise SystemExit(f"convert_fusions_to_vcf wrote {len(records)} "
+                         f"records for {n_fusions} fusions")
+    log(f"tool: convert_fusions_to_vcf, jax blocked, {len(records)} BND "
+        f"records for {n_fusions} fusions in {seconds:.3f} s")
+
+
 def against_cases(kernel: str) -> dict:
     """The phase-2 inputs of a kernel for compare: {case: (arguments of its
     C entry point before the stream, setup run before each launch or None,
     a check that the output equals the plain version's)}. K1: the main,
-    low-complexity and mixed batches; K2 and K3: their phase-2 batch."""
+    low-complexity and mixed batches; K2 and K3: their phase-2 batch; K4:
+    its bench and no_hit cases."""
     import numpy as np
     import torch
 
@@ -915,9 +1358,17 @@ def against_cases(kernel: str) -> dict:
         want = realign.smith_waterman_scores_plain(r, w)
         cases["main"] = ((r, w, out, *r.shape, w.shape[1], 1, -1, -1), None,
                          lambda: torch.equal(out, want))
+    elif kernel == "mxu_kmer_screen":
+        for name in ("bench", "no_hit"):
+            r, w = (torch.from_numpy(x).to(cuda) for x in mxu_inputs(name))
+            out = torch.empty(len(r), dtype=torch.uint8, device=cuda)
+            want = realign.mxu_shared_kmer_mask_plain(r, w)
+            cases[name] = ((r, w, out, *r.shape, w.shape[1]), None,
+                           lambda out=out, want=want: torch.equal(
+                               out.view(torch.bool), want))
     else:
-        raise SystemExit(f"--against takes accept_wavefront, low_entropy or "
-                         f"smith_waterman, not {kernel}")
+        raise SystemExit(f"--against takes accept_wavefront, low_entropy, "
+                         f"smith_waterman or mxu_kmer_screen, not {kernel}")
     return cases
 
 
@@ -1148,14 +1599,24 @@ def main() -> int:
     t0 = time.perf_counter()
     sample = bench_samples.build_tier2(REPO / "build" / "chip_smoke" / "tier2",
                                        quiet=True)
-    log(f"sample: {sample} built in {time.perf_counter() - t0:.1f} s")
+    tenth = build_tier2_tenth(sample, REPO / "build" / "chip_smoke"
+                              / "tier2_tenth")
+    log(f"sample: {sample} and {tenth} built in "
+        f"{time.perf_counter() - t0:.1f} s")
     # each run prints its stages' seconds to stderr
     os.environ["ARRIBA_TPU_TORCH_STAGE_TIMES"] = "1"
     threads = min(8, os.cpu_count() or 1)
     states: list = []
     t0 = time.perf_counter()
-    results = main_path(sample, threads, runs(torch.cuda.device_count()),
-                        states)
+    n_cards = torch.cuda.device_count()
+    results = main_path(sample, threads, runs(n_cards)[:3], states)
+    reduced = main_path(tenth, threads, reduced_runs(n_cards))
+    for label in ("D", "E"):
+        _, _, run_launches, ops = reduced[label]
+        if run_launches["accept_wavefront"] <= 0 or ops.get(
+                "shared_kmer_mask", (0, 0))[1] <= 0:
+            raise SystemExit(f"run {label} never reached the 8-mer screen "
+                             f"and K1")
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
     seconds_a, chimeric, launches, _ = results["A"]
     log(f"run A: {seconds_a:.3f} s wall, {chimeric / seconds_a:.1f} "
@@ -1171,23 +1632,42 @@ def main() -> int:
     launches["smith_waterman"] = check_sharded(states[0], 4)
     del states[:]
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
+    # phase 6: K4's caller
+    t0 = time.perf_counter()
+    launches["mxu_kmer_screen"] = mxu_path()
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: the cohort runner, every worker on the card
+    t0 = time.perf_counter()
+    out_c = sample / "fusions.C.tsv"
+    cohort_phase(sample, threads, (out_c.read_bytes(), sample.joinpath(
+        "fusions.C.discarded.tsv").read_bytes()), results["C"][0])
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: a downstream tool
+    t0 = time.perf_counter()
+    tool_phase(sample, out_c)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
+    where = {"smith_waterman": "phase 5", "mxu_kmer_screen": "phase 6"}
     for record in records:
         record["launches"] = launches[record["name"]]
-        where = "phase 5" if record["name"] == "smith_waterman" else "run A"
         log(f"{record['name']}: kernel {record['ms']:.4f} ms, plain "
             f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
             f"({record['bound_by']}, {record['bound_ms'] / record['ms']:.1%} "
             f"of the kernel's time), {record['launches']} launches in "
-            f"{where}")
+            f"{where.get(record['name'], 'run A')}")
         if record["launches"] <= 0:
             raise SystemExit(f"{record['name']} never launched on the main "
                              f"path")
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
-    # K1 adds its every-diagonal bound and its phase-2 cases
+    # K1 adds its every-diagonal bound, K4 its full-product bound, both
+    # their phase-2 cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "walk_all_bound_ms", "cases")
+            "walk_all_bound_ms", "full_product_bound_ms", "cases")
     print(json.dumps({"kernels": [{key: record[key] for key in keys
                                    if key in record}
                                   for record in records]}))

@@ -29,7 +29,7 @@ setup(
               "arriba_tpu_torch.filters", "arriba_tpu_torch.ingest",
               "arriba_tpu_torch.io", "arriba_tpu_torch.kernels",
               "arriba_tpu_torch.ops", "arriba_tpu_torch.output",
-              "arriba_tpu_torch.parallel"],
+              "arriba_tpu_torch.parallel", "arriba_tpu_torch.tools"],
     package_data={"arriba_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension("arriba_tpu._native",

@@ -33,7 +33,8 @@ from arriba_tpu.ops import readfilters as jax_readfilters  # noqa: E402
 from arriba_tpu.ops import realign as jax_realign  # noqa: E402
 from arriba_tpu_torch.kernels.build import CSRC  # noqa: E402
 from arriba_tpu_torch.ops import readfilters, realign  # noqa: E402
-from chip_smoke import ACCEPT_KINDS, accept_adversarial_inputs  # noqa: E402
+from chip_smoke import (ACCEPT_KINDS, accept_adversarial_inputs,  # noqa: E402
+                        mxu_inputs, mxu_work)
 
 HARNESS = r"""
 #include <stdint.h>
@@ -41,7 +42,40 @@ HARNESS = r"""
 #include <vector>
 #include "accept_wavefront.cuh"
 #include "low_entropy.cuh"
+#include "mxu_kmer_screen.cuh"
 #include "smith_waterman.cuh"
+
+// K4's mma.sync.m16n8k32 s8 for one warp, emulated from the fragment
+// layout: the 32 lanes' registers scattered into A (16 x 32) and B (32 x 8)
+// by mk_a_row / mk_a_col and mk_b_row / mk_b_col, multiplied, and each
+// lane's four dots gathered by mk_c_row / mk_c_col
+static void mk_mma_warp(const uint32_t a[32][4], const uint32_t b[32][2],
+                        int32_t d[32][4]) {
+    int8_t A[16][32], B[32][8];
+    for (int lane = 0; lane < 32; ++lane) {
+        for (int r = 0; r < 4; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                A[arriba::mk_a_row(lane, r)][arriba::mk_a_col(lane, r, byte)] =
+                    (int8_t)(a[lane][r] >> (8 * byte));
+            }
+        }
+        for (int r = 0; r < 2; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                B[arriba::mk_b_row(lane, r, byte)][arriba::mk_b_col(lane)] =
+                    (int8_t)(b[lane][r] >> (8 * byte));
+            }
+        }
+    }
+    for (int lane = 0; lane < 32; ++lane) {
+        for (int r = 0; r < 4; ++r) {
+            const int i = arriba::mk_c_row(lane, r);
+            const int j = arriba::mk_c_col(lane, r);
+            int32_t dot = 0;
+            for (int k = 0; k < 32; ++k) dot += A[i][k] * B[k][j];
+            d[lane][r] = dot;
+        }
+    }
+}
 
 // K3's warp for a pair of rows (b, wb null: the dummy row of an odd
 // batch): every 128 steps each lane loads four columns of both windows;
@@ -247,6 +281,120 @@ void sw_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
     }
 }
 
+// K4's layout: the (lane, register, byte) slots of A, B and C that land on
+// each matrix element; every element must be held exactly once
+int mk_layout_errors() {
+    int a[16][32] = {}, b[32][8] = {}, c[16][8] = {};
+    for (int lane = 0; lane < 32; ++lane) {
+        for (int r = 0; r < 4; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                const int col = arriba::mk_a_col(lane, r, byte);
+                a[arriba::mk_a_row(lane, r)][col]++;
+            }
+            c[arriba::mk_c_row(lane, r)][arriba::mk_c_col(lane, r)]++;
+        }
+        for (int r = 0; r < 2; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                b[arriba::mk_b_row(lane, r, byte)][arriba::mk_b_col(lane)]++;
+            }
+        }
+    }
+    int errors = 0;
+    for (int i = 0; i < 16; ++i) {
+        for (int k = 0; k < 32; ++k) errors += a[i][k] != 1;
+        for (int j = 0; j < 8; ++j) errors += c[i][j] != 1;
+    }
+    for (int k = 0; k < 32; ++k) {
+        for (int j = 0; j < 8; ++j) errors += b[k][j] != 1;
+    }
+    return errors;
+}
+
+// the A matrix (16 x 32 int8) of the read tile at p0 as the lanes'
+// fragments (mk_a_fragment) lay it out
+void mk_a_matrix(const uint8_t* read, int L, int p0, int8_t* out) {
+    for (int lane = 0; lane < 32; ++lane) {
+        uint32_t a[4];
+        arriba::mk_a_fragment(read, L, p0, lane, a);
+        for (int r = 0; r < 4; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                out[arriba::mk_a_row(lane, r) * 32
+                    + arriba::mk_a_col(lane, r, byte)] =
+                    (int8_t)(a[r] >> (8 * byte));
+            }
+        }
+    }
+}
+
+// K4's block on each row as the kernel orders it: the read tiles in
+// groups of MK_GROUP, the window staged chunk by chunk as one-hot
+// words, each window tile's B fragments against every A fragment of the
+// group through the emulated product, the dots folded per lane and tested
+// for a hit across the warp. The warps of a block share a chunk's tiles
+// and stop at the first hit, which decides nothing the OR does not: here
+// one warp takes every tile in order and none stops, so first_tile[row]
+// is the first window tile (over all groups) with a dot of 8, -1 for
+// none. chunk: MK_CHUNK, or smaller to cross chunk edges in small windows.
+void mk_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
+             int64_t* first_tile, int n, int L, int W, int chunk) {
+    const int n_tiles = arriba::mk_read_tiles(L);
+    const int n_kmers = W - arriba::MK_K + 1;
+    std::vector<uint32_t> onehot(chunk + 16);
+    std::vector<uint32_t> a(32 * 16 * 4);
+    for (int row = 0; row < n; ++row) {
+        const uint8_t* read = reads + (long)row * L;
+        const uint8_t* window = windows + (long)row * W;
+        int64_t first = -1;
+        for (int t0 = 0; t0 < n_tiles; t0 += arriba::MK_GROUP) {
+            for (int lane = 0; lane < 32; ++lane) {
+                for (int i = 0; i < arriba::MK_GROUP; ++i) {
+                    arriba::mk_a_fragment(read, L,
+                                          (t0 + i) * arriba::MK_TILE_M, lane,
+                                          &a[(lane * 16 + i) * 4]);
+                }
+            }
+            for (int c0 = 0; c0 < n_kmers; c0 += chunk) {
+                for (int i = 0; i < chunk + 16; ++i) {
+                    const int pos = c0 + i;
+                    onehot[i] = pos < W ? arriba::mk_onehot(window[pos]) : 0u;
+                }
+                const int tiles = (std::min(chunk, n_kmers - c0)
+                                   + arriba::MK_TILE_N - 1)
+                                  / arriba::MK_TILE_N;
+                for (int w = 0; w < tiles; ++w) {
+                    uint32_t b[32][2], acc[32] = {};
+                    for (int lane = 0; lane < 32; ++lane) {
+                        arriba::mk_b_fragment(onehot.data(),
+                                              w * arriba::MK_TILE_N, lane,
+                                              b[lane]);
+                    }
+                    for (int i = 0; i < arriba::MK_GROUP; ++i) {
+                        uint32_t ai[32][4];
+                        int32_t d[32][4];
+                        for (int lane = 0; lane < 32; ++lane) {
+                            for (int r = 0; r < 4; ++r) {
+                                ai[lane][r] = a[(lane * 16 + i) * 4 + r];
+                            }
+                        }
+                        mk_mma_warp(ai, b, d);
+                        for (int lane = 0; lane < 32; ++lane) {
+                            acc[lane] = arriba::mk_fold(acc[lane], d[lane]);
+                        }
+                    }
+                    bool hit = false;
+                    for (int lane = 0; lane < 32; ++lane) {
+                        hit |= arriba::mk_hit(acc[lane]);
+                    }
+                    const int64_t tile = c0 / arriba::MK_TILE_N + w;
+                    if (hit && (first < 0 || tile < first)) first = tile;
+                }
+            }
+        }
+        out[row] = first >= 0;
+        first_tile[row] = first;
+    }
+}
+
 // K3's 16x2 primitives as the host emulation computes them: 0 add.s16x2,
 // 1 max.s16x2, 2 the DPX add+max.relu, 3 prmt
 uint32_t sw_primitive(int which, uint32_t a, uint32_t b, uint32_t c) {
@@ -284,6 +432,9 @@ def harness(tmp_path_factory):
     lib.sw_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     lib.sw_primitive.argtypes = [ctypes.c_int] + [ctypes.c_uint32] * 3
     lib.sw_primitive.restype = ctypes.c_uint32
+    lib.mk_a_matrix.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.mk_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     return lib
 
 
@@ -700,3 +851,114 @@ def test_smith_waterman_guard(L, W, params, ok):
     else:
         with pytest.raises(ValueError):
             kernels.sw_guard(L, W, *params)
+
+
+def test_mxu_fragment_layout_covers_each_element_once(harness):
+    """K4's m16n8k32 s8 layout helpers put every element of A, B and C in
+    exactly one (lane, register, byte), and a read tile's fragments lay out
+    its one-hot k-mers: A[i, 4j + c] = 1 iff read[p0 + i + j] == c <= 3
+    (0 past the read)."""
+    assert harness.mk_layout_errors() == 0
+    rng = np.random.default_rng(12)
+    L = 40
+    read = rng.integers(0, 6, L).astype(np.uint8)
+    for p0 in (0, 16, 32):
+        got = np.zeros((16, 32), np.int8)
+        harness.mk_a_matrix(_ptr(read), L, p0, _ptr(got))
+        want = np.zeros((16, 32), np.int8)
+        for i in range(16):
+            for j in range(8):
+                p = p0 + i + j
+                if p < L and read[p] <= 3:
+                    want[i, 4 * j + read[p]] = 1
+        np.testing.assert_array_equal(got, want)
+
+
+def _mxu_rows_device_ops(above_4):
+    """tests/test_device_ops.py:262-286 (planted seeds, one past the first
+    w_chunk, one at the tail, PAD tails, a fully padded read), with bytes
+    5-255 scattered through reads and windows and over planted seeds when
+    above_4 is set."""
+    from .test_torch_realign import _screen_rows_padded
+
+    reads, windows = _screen_rows_padded()
+    if above_4:
+        rng = np.random.default_rng(21)
+        for x in (reads, windows):
+            spots = rng.random(x.shape) < 0.03
+            x[spots] = rng.integers(5, 256, int(spots.sum()))
+        reads[0, 14] = windows[0, 43] = 9       # inside the row-0 seed
+        reads[6, 20:28] = windows[6, 300:308] = [0, 1, 2, 3, 3, 2, 1, 0]
+    return reads, windows
+
+
+def _mxu_rows_long(seed, n=8, L=300, W=600):
+    """Reads of 19 read tiles (two groups of registers), seeds planted from
+    read position 280 (the second group) in half the rows; a window of a
+    few chunk widths at a 64-k-mer chunk."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 2, (n, L)).astype(np.uint8)
+    windows = rng.integers(2, 4, (n, W)).astype(np.uint8)
+    for row in range(0, n, 2):
+        at = int(rng.integers(0, W - 8))
+        windows[row, at:at + 8] = reads[row, 280 + row:288 + row]
+    return reads, windows
+
+
+def _mxu_rows_narrow(L, W):
+    """Rows narrower than one tile: an 8-mer of the read planted in every
+    other window when both are wide enough."""
+    rng = np.random.default_rng(L * 1000 + W)
+    reads = rng.integers(0, 4, (10, L)).astype(np.uint8)
+    windows = rng.integers(0, 4, (10, W)).astype(np.uint8)
+    if L >= 8 and W >= 8:
+        windows[::2, W - 8:] = reads[::2, L - 8:]
+    return reads, windows
+
+
+# (rows, window k-mers staged at a time): the kernel's chunk and one that
+# crosses chunk edges inside these windows
+_MK_CASES = {
+    "device_ops": (lambda: _mxu_rows_device_ops(False), 2048),
+    "device_ops_chunk_64": (lambda: _mxu_rows_device_ops(False), 64),
+    "above_4": (lambda: _mxu_rows_device_ops(True), 2048),
+    "odd": (lambda: tuple(x[:48] for x in mxu_inputs("odd")), 2048),
+    "pad": (lambda: mxu_inputs("pad", N=16, W=1024), 256),
+    "long_reads": (lambda: _mxu_rows_long(3), 64),
+    "narrow": (lambda: _mxu_rows_narrow(20, 12), 2048),
+    "narrow_read_7": (lambda: _mxu_rows_narrow(7, 40), 2048),
+    "narrow_window_7": (lambda: _mxu_rows_narrow(40, 7), 2048),
+}
+
+
+@pytest.mark.parametrize("case", list(_MK_CASES))
+def test_mxu_kmer_screen_emulation_matches_plain_and_jax(harness, case):
+    """K4's per-row procedure with the product emulated from its fragment
+    layout, against the port's plain version and the JAX package's
+    mxu_shared_kmer_mask (and, where every byte is a code 0-4, both sorted
+    screens); each row's first window tile with a hit against mxu_work,
+    which chip_smoke.py's bound counts from."""
+    make_rows, chunk = _MK_CASES[case]
+    reads, windows = (np.ascontiguousarray(x) for x in make_rows())
+    (n, L), W = reads.shape, windows.shape[1]
+    verdict = np.zeros(n, np.uint8)
+    first = np.zeros(n, np.int64)
+    harness.mk_rows(_ptr(reads), _ptr(windows), _ptr(verdict), _ptr(first),
+                    n, L, W, chunk)
+    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
+    plain = realign.mxu_shared_kmer_mask_plain(r, w).numpy()
+    np.testing.assert_array_equal(verdict != 0, plain)
+    work = mxu_work(r, w)
+    np.testing.assert_array_equal(first, work["first_tile"].numpy())
+    np.testing.assert_array_equal(plain, work["verdict"].numpy())
+    if min(L, W) >= 8:                  # the JAX op needs one k-mer each
+        xla = np.asarray(jax_realign.mxu_shared_kmer_mask(
+            jnp.asarray(reads), jnp.asarray(windows)))
+        np.testing.assert_array_equal(plain, xla)
+    if max(reads.max(), windows.max()) <= 4:
+        np.testing.assert_array_equal(
+            plain, realign.shared_kmer_mask(r, w).numpy())
+    if case.startswith("narrow_"):
+        assert not plain.any()
+    else:
+        assert 0 < plain.sum() < n

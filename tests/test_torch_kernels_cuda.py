@@ -1,8 +1,9 @@
-"""The port on the card: the CUDA kernels against their plain PyTorch
-versions, the other offloaded ops and whole CLI runs against the CPU and
-host paths, and the kernel wrappers' argument checks. The tests that need a
-CUDA device are marked ``cuda`` and skip without one; ``python3
-chip_smoke.py`` runs the kernel comparison at the main path's shapes."""
+"""The port on the card: the CUDA kernels (K1-K4) against their plain
+PyTorch versions, the other offloaded ops and whole CLI runs against the
+CPU and host paths, and the kernel wrappers' argument checks. The tests
+that need a CUDA device are marked ``cuda`` and skip without one;
+``python3 chip_smoke.py`` runs the kernel comparison at the main path's
+shapes."""
 
 import pytest
 import torch
@@ -180,6 +181,85 @@ def test_low_entropy_kernel_routes(cuda, L, short):
     assert (int(want.sum()) == 0) if short else (0 < int(want.sum()) < 1000)
 
 
+# K4 on chip_smoke.py's phase-2 cases, (a)-(c) on the first rows of the
+# bench shape: the bench rows (early exits), no hit anywhere (the full
+# product), PAD tails and bytes above 4, and 333 x 45 x 1,001
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,N", [("bench", 64), ("no_hit", 16),
+                                    ("pad", 64), ("odd", 333)])
+def test_mxu_kmer_screen_kernel_matches_plain(cuda, case, N):
+    from chip_smoke import mxu_inputs, mxu_work
+
+    reads, windows = (torch.from_numpy(x[:N].copy()).to(cuda)
+                      for x in mxu_inputs(case))
+    before = kernels.launch_counts["mxu_kmer_screen"]
+    got = realign.mxu_shared_kmer_mask(reads, windows)
+    want = realign.mxu_shared_kmer_mask_plain(reads, windows)
+    assert kernels.launch_counts["mxu_kmer_screen"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(want, mxu_work(reads, windows)["verdict"])
+    if case == "no_hit":
+        assert not bool(want.any())
+    elif case == "pad":
+        assert want.cpu().tolist() == [row % 4 == 0 for row in range(N)]
+    elif case == "bench":
+        # ~18 chance hits are expected in a row of 145 x 8,001 k-mer pairs
+        assert bool(want.all())
+    else:
+        assert 0 < int(want.sum()) < N
+
+
+# odd N and one row; reads of 19 and 17 read tiles (two register groups)
+# against windows of several chunks; rows narrower than one tile; reads or
+# windows too short for an 8-mer; bytes 0-5 throughout
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,W", [(1, 152, 8008), (17, 300, 5000),
+                                   (31, 263, 2100), (65, 20, 12),
+                                   (9, 7, 100), (9, 100, 7)])
+def test_mxu_kmer_screen_kernel_shapes(cuda, N, L, W):
+    gen = torch.Generator().manual_seed(N * 7 + L)
+    reads = torch.randint(0, 6, (N, L), dtype=torch.uint8, generator=gen)
+    windows = torch.randint(0, 6, (N, W), dtype=torch.uint8, generator=gen)
+    if min(L, W) >= 8:
+        seed = torch.randint(0, 4, (N, 8), dtype=torch.uint8, generator=gen)
+        reads[::2, L - 8:] = seed[::2]
+        windows[::2, W // 3:W // 3 + 8] = seed[::2]
+    reads, windows = reads.to(cuda), windows.to(cuda)
+    got = realign.mxu_shared_kmer_mask(reads, windows)
+    want = realign.mxu_shared_kmer_mask_plain(reads, windows)
+    assert torch.equal(got, want)
+    if min(L, W) >= 8:
+        assert bool(want[::2].all())
+    else:
+        assert not bool(want.any())
+
+
+@pytest.mark.cuda
+def test_mxu_kmer_screen_kernel_refusals(cuda):
+    """K4's wrapper refuses a wrong dtype, device, layout or row count
+    before launch, and launches nothing for no rows; the op refuses k != 8
+    on the card."""
+    reads = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
+    windows = torch.zeros(4, 256, dtype=torch.uint8, device=cuda)
+    out = torch.zeros(4, dtype=torch.uint8, device=cuda)
+    before = dict(kernels.launch_counts)
+    for args, match in (
+            ((reads.int(), windows, out), "uint8"),
+            ((reads, windows.long(), out), "uint8"),
+            ((reads, windows, out.bool()), "uint8"),
+            ((reads, windows.cpu(), out), "CUDA tensor"),
+            ((reads[:, ::2], windows, out), "contiguous"),
+            ((reads, windows[:3], out), "same rows"),
+            ((reads, windows, out[:3]), "same rows")):
+        with pytest.raises(ValueError, match=match):
+            kernels.launch_mxu_kmer_screen(*args)
+    with pytest.raises(ValueError, match="8-mers"):
+        realign.mxu_shared_kmer_mask(reads, windows, k=7)
+    assert kernels.launch_counts == before
+    assert realign.mxu_shared_kmer_mask(reads[:0], windows[:0]).shape == (0,)
+    assert kernels.launch_counts == before
+
+
 def test_smith_waterman_wrapper_checks_its_guard_before_launch(monkeypatch):
     """The wrapper refuses shapes and scores past K3's 16-bit guard before
     anything is launched (a CUDA-free check: the tensor checks are stubbed
@@ -235,6 +315,8 @@ _LE_ARGS = (torch.zeros(2, 4, dtype=torch.uint8),
             torch.zeros(2, 8, dtype=torch.int32))
 _SW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
             torch.zeros(2, 16, dtype=torch.uint8))
+_MK_ARGS = (torch.zeros(2, 20, dtype=torch.uint8),
+            torch.zeros(2, 64, dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("name,args", [
@@ -246,6 +328,9 @@ _SW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
     ("smith_waterman", _SW_ARGS),
     ("launch_smith_waterman",
      _SW_ARGS + (torch.zeros(2, dtype=torch.int32),)),
+    ("mxu_kmer_screen", _MK_ARGS),
+    ("launch_mxu_kmer_screen",
+     _MK_ARGS + (torch.zeros(2, dtype=torch.uint8),)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(name, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach it

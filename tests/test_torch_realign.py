@@ -66,6 +66,59 @@ def test_shared_kmer_mask_matches_jax_and_bruteforce(make_rows):
     assert got[0] and not got.all()
 
 
+def _screen_rows_above_4():
+    """The padded rows with bytes 5-255 scattered through reads and
+    windows, one inside row 0's planted seed: the one-hot screen reads such
+    a byte as no base, the sorted screen as code 3."""
+    reads, windows = _screen_rows_padded()
+    rng = np.random.default_rng(21)
+    for x in (reads, windows):
+        spots = rng.random(x.shape) < 0.03
+        x[spots] = rng.integers(5, 256, int(spots.sum()))
+    reads[0, 14] = windows[0, 43] = 9
+    return reads, windows
+
+
+def _screen_rows_narrow():
+    """Reads of 20 bytes (13 k-mers, less than one 16-k-mer tile) against
+    windows of 12 (5 k-mers, less than one 8-k-mer tile); the read's last
+    8-mer planted at every other window's end."""
+    rng = np.random.default_rng(5)
+    reads = rng.integers(0, 4, size=(9, 20), dtype=np.uint8)
+    windows = rng.integers(0, 4, size=(9, 12), dtype=np.uint8)
+    windows[::2, 4:] = reads[::2, 12:]
+    return reads, windows
+
+
+@pytest.mark.parametrize("make_rows,w_chunk", [
+    (_screen_rows_random, 512), (_screen_rows_padded, 512),
+    (_screen_rows_padded, 64), (_screen_rows_above_4, 512),
+    (_screen_rows_narrow, 512)])
+def test_mxu_shared_kmer_mask_matches_jax_and_sorted_screen(make_rows,
+                                                            w_chunk):
+    """The one-hot product screen (plain PyTorch on the CPU) gives the JAX
+    op's verdicts exactly, and the sorted screen's wherever every byte is a
+    code 0-4; a k-mer covering a byte above 3 never matches."""
+    reads, windows = make_rows()
+    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
+    got = realign.mxu_shared_kmer_mask(r, w, w_chunk=w_chunk).numpy()
+    want = np.asarray(jax_realign.mxu_shared_kmer_mask(
+        jnp.asarray(reads), jnp.asarray(windows), w_chunk=w_chunk))
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < len(got)
+    if max(reads.max(), windows.max()) <= PAD_CODE:
+        np.testing.assert_array_equal(
+            got, realign.shared_kmer_mask(r, w).numpy())
+    for row in range(len(reads)):
+        read_kmers = {tuple(reads[row, i:i + 8])
+                      for i in range(reads.shape[1] - 7)}
+        window_kmers = {tuple(windows[row, i:i + 8])
+                        for i in range(windows.shape[1] - 7)}
+        shared = {kmer for kmer in read_kmers & window_kmers
+                  if max(kmer) <= 3}
+        assert got[row] == bool(shared), f"row {row}"
+
+
 def test_accept_wavefront_plain_matches_xla_and_pallas():
     """tests/test_device_ops.py:853-887: embedded copies, random rejects,
     short windows and per-row bounds; the plain version against the XLA
@@ -328,3 +381,27 @@ def test_realign_step_matches_jax(fraction):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
                                       err_msg=key)
     assert got["can_align"].any() and not got["can_align"].all()
+
+
+@pytest.mark.parametrize("make_rows", [
+    _screen_rows_random, _screen_rows_padded, _screen_rows_above_4,
+    _screen_rows_narrow])
+def test_mxu_work_counts_kmer_pairs_to_the_first_hit(make_rows):
+    """chip_smoke.py's K4 bound counts each row's read k-mers against its
+    window k-mers up to the first one shared over codes 0-3 (all of them
+    for a row with none), 32 multiply-adds a pair: brute force here."""
+    from chip_smoke import mxu_work
+
+    reads, windows = make_rows()
+    work = mxu_work(torch.from_numpy(reads), torch.from_numpy(windows))
+    R, WK = reads.shape[1] - 7, windows.shape[1] - 7
+    pairs = 0
+    for row in range(len(reads)):
+        read_kmers = {tuple(reads[row, i:i + 8]) for i in range(R)}
+        first = next((j for j in range(WK)
+                      if max(windows[row, j:j + 8]) <= 3
+                      and tuple(windows[row, j:j + 8]) in read_kmers), None)
+        pairs += R * (WK if first is None else first + 1)
+        assert bool(work["verdict"][row]) == (first is not None), row
+    assert work["macs"] == 32 * pairs
+    assert work["macs"] < work["full_macs"] == len(reads) * R * WK * 32

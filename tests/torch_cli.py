@@ -12,21 +12,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 COUNTER = re.compile(r"\((?:remaining|total|marked)=\d+\)")
 
 # A meta-path finder that makes jax, jaxlib and the JAX package unimportable.
-BLOCKER = r"""
-import importlib.abc
-import os
-import sys
-
-
-class Block(importlib.abc.MetaPathFinder):
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "arriba_tpu"):
-            raise ImportError(name + " may not be imported by the port")
-        return None
-
-
-sys.meta_path.insert(0, Block())
-"""
+BLOCKER = (REPO / "import_blocker.py").read_text()
 
 # The port's CLI with the blocker installed, in its own process and, through
 # a sitecustomize on PYTHONPATH, in every Python process it starts (the
