@@ -1,8 +1,8 @@
-// Fragment layout and per-tile math of the one-hot 8-mer screen (K4).
+// Operand layouts and per-tile math of the one-hot 8-mer screen (K4).
 //
 // Shared by the CUDA kernel (mxu_kmer_screen.cu) and a CPU build of the
 // same functions (tests/test_torch_kernel_math.py), which emulates the
-// tensor-core product from the layout below.
+// warpgroup product from the layouts below.
 //
 // A k-mer is encoded as 4k = 32 int8 lanes, one-hot per base: lane 4j + c
 // is 1 when position j holds code c (0-3). A byte above 3 (PAD 4, or any
@@ -12,18 +12,34 @@
 // exactly when the k-mers are equal. With k = 8 that is bit 3, so an OR of
 // dots tests "some dot is 8" with one AND at the end (mk_hit).
 //
-// One mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 multiplies 16 read
-// k-mers (A, 16 x 32, row-major) by 8 window k-mers (B, 32 x 8,
-// column-major) into 16 x 8 int32 dots: the whole reduction depth is one
-// instruction. Lane l of the warp, with g = l / 4 and t = l % 4, holds
-// (PTX ISA, "Matrix fragments for mma.m16n8k32" with .s8):
-//   A: 4 registers of 4 bytes; register r, byte b is row g + 8 (r & 1),
-//      column 4 t + b + 16 (r >> 1)
-//   B: 2 registers of 4 bytes; register r, byte b is row 4 t + b + 16 r,
-//      column g
-//   C/D: 4 int32; register r is row g + 8 (r >> 1), column 2 t + (r & 1)
-// So each A or B register covers the four lanes of one base of one k-mer:
-// it is the one-hot word of that base (mk_onehot).
+// One wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 multiplies 64
+// window k-mers (A, 64 x 32, in registers) by 160 read k-mers (B, 32 x
+// 160, in shared memory) into 64 x 160 int32 dots: the whole reduction
+// depth is one instruction.
+//
+// Four tiles in one accumulator. A dot lies in [0, 8], one base-16 digit,
+// so the products of MK_GROUP = 4 window tiles can share the accumulators
+// if tile j's product is weighted 16^j: each dot of the sum holds tile j's
+// dot exactly as its digit j, and bit 4 j + 3 is set only by a dot of 8 in
+// tile j (MK_HIT_MASK tests all four). The weight is the product of an A
+// scale and a B scale, both bytes below 128 (s8): 1 x 1, 1 x 16, 16 x 16,
+// 64 x 64, so the block keeps three B images, scaled 1, 16 and 64
+// (mk_a_shift, mk_tile_image, mk_b_shift). Four wgmmas then leave one
+// accumulator set to fold and vote on, where one tile a wgmma left four.
+//
+// A: warp w of the warpgroup holds rows 16 w .. 16 w + 15 in the layout of
+// mma.m16n8k32's A (PTX ISA, "Register fragments and shared memory matrix
+// layouts" for wgmma with .s8 A in registers): lane l, with g = l / 4 and
+// t = l % 4, register r, byte b is row 16 w + g + 8 (r & 1), column
+// 4 t + b + 16 (r >> 1). Each register covers the four lanes of one base of
+// one k-mer: it is the one-hot word of that base (mk_onehot).
+//
+// B: K-major (each read k-mer's 32 lanes together), no swizzle. The image
+// is made of core matrices of 8 k-mers x 16 bytes, 128 contiguous bytes
+// each (a k-mer's 16 bytes, then the next k-mer's). The two 16-byte halves
+// of the 32 lanes lie MK_LBO apart (the descriptor's leading byte offset,
+// the K direction) and consecutive groups of 8 k-mers MK_SBO apart (its
+// stride byte offset), so (k-mer n, lane k) lies at mk_b_offset(n, k).
 #pragma once
 
 #include <stdint.h>
@@ -35,28 +51,30 @@
 
 namespace arriba {
 
-constexpr int MK_K = 8;           // k-mer length: 4k = 32, one MMA's depth
-constexpr int MK_TILE_M = 16;     // read k-mers a tile
-constexpr int MK_TILE_N = 8;      // window k-mers a tile
-constexpr int MK_WARPS = 8;       // warps a block (a row)
-constexpr int MK_CHUNK = 2048;    // window k-mers staged at a time
+constexpr int MK_K = 8;            // k-mer length: 4k = 32, one wgmma's depth
+constexpr int MK_TILE_M = 64;      // window k-mers a wgmma (the A rows)
+constexpr int MK_N = 160;          // read k-mers a slab (the B columns)
+constexpr int MK_CHUNK = 2048;     // window k-mers a stage copies
+constexpr int MK_GROUP = 4;        // window tiles an accumulation
+constexpr int MK_IMAGES = 3;       // B images, scaled 1, 16 and 64
+constexpr int MK_STAGES = 4;       // slots of a block's copy ring
+constexpr uint32_t MK_HIT_MASK = 0x8888;    // bit 3 of each tile's digit
+constexpr int MK_LBO = 128;        // bytes between the two K halves
+constexpr int MK_SBO = 256;        // bytes between groups of 8 k-mers
+constexpr int MK_IMAGE = MK_N * 4 * MK_K;   // bytes a B image: 5,120
+// bytes a stage copies at most: the slab's read bytes (MK_N + 7) and the
+// chunk's window bytes (MK_CHUNK + 7), each from the 16-byte boundary at
+// or below its first byte up to a 16-byte multiple (cp.async.bulk)
+constexpr int MK_READ_SPAN = (15 + MK_N + MK_K - 1 + 15) / 16 * 16;
+constexpr int MK_WINDOW_SPAN = (15 + MK_CHUNK + MK_K - 1 + 15) / 16 * 16;
 
-// the layout of the m16n8k32 s8 fragments (see the head of this file)
+// the layout of the A fragments (see the head of this file); warp w adds
+// 16 w to the row
 __host__ __device__ inline int mk_a_row(int lane, int r) {
     return (lane >> 2) + 8 * (r & 1);
 }
 __host__ __device__ inline int mk_a_col(int lane, int r, int b) {
     return 4 * (lane & 3) + b + 16 * (r >> 1);
-}
-__host__ __device__ inline int mk_b_row(int lane, int r, int b) {
-    return 4 * (lane & 3) + b + 16 * r;
-}
-__host__ __device__ inline int mk_b_col(int lane) { return lane >> 2; }
-__host__ __device__ inline int mk_c_row(int lane, int r) {
-    return (lane >> 2) + 8 * (r >> 1);
-}
-__host__ __device__ inline int mk_c_col(int lane, int r) {
-    return 2 * (lane & 3) + (r & 1);
 }
 
 // the four one-hot lanes of a base, byte c set for code c; 0 above code 3
@@ -64,50 +82,157 @@ __host__ __device__ inline uint32_t mk_onehot(uint32_t code) {
     return code <= 3 ? 1u << (8 * code) : 0u;
 }
 
-// lane's A fragment of the read tile whose first k-mer starts at read
-// position p0: register r holds the base at position j = column / 4 of the
-// k-mer at row p0 + row, 0 past the read's L bytes (so a k-mer running off
-// the read has a zero lane and cannot reach k)
-__host__ __device__ inline void mk_a_fragment(const uint8_t* read, int L,
-                                              int p0, int lane,
-                                              uint32_t a[4]) {
+// tile j (0-3) of a group weighs 16^j = 2^mk_a_shift(j) x 2^mk_b_shift of
+// B image mk_tile_image(j)
+__host__ __device__ inline int mk_a_shift(int j) {
+    return j == 2 ? 4 : j == 3 ? 6 : 0;
+}
+__host__ __device__ inline int mk_tile_image(int j) {
+    return j == 0 ? 0 : j == 3 ? 2 : 1;
+}
+__host__ __device__ inline int mk_b_shift(int image) {
+    return image == 0 ? 0 : image == 1 ? 4 : 6;
+}
+
+// the one-hot word of byte p of bytes, n of them readable; 0 past them
+__host__ __device__ inline uint32_t mk_word(const uint8_t* bytes, int n,
+                                            int p) {
+    return p < n ? mk_onehot(bytes[p]) : 0u;
+}
+
+// lane's A fragment of the 16 k-mers whose first starts at p0, from the
+// one-hot words of their bases (mk_word), each lane scaled by 2^shift:
+// register r holds the base at position j = column / 4 of the k-mer at row
+// p0 + row (a k-mer running off the bytes has a zero word and cannot reach
+// k)
+__host__ __device__ inline void mk_a_fragment(const uint32_t* words, int p0,
+                                              int lane, uint32_t a[4],
+                                              int shift = 0) {
     for (int r = 0; r < 4; ++r) {
-        const int p = p0 + mk_a_row(lane, r) + mk_a_col(lane, r, 0) / 4;
-        a[r] = p < L ? mk_onehot(read[p]) : 0u;
+        a[r] = words[p0 + mk_a_row(lane, r) + mk_a_col(lane, r, 0) / 4]
+               << shift;
     }
 }
 
-// lane's B fragment of the window tile whose first k-mer starts at
-// position q0 of onehot, the one-hot words of a stretch of the window (0
-// past its end)
-__host__ __device__ inline void mk_b_fragment(const uint32_t* onehot, int q0,
-                                              int lane, uint32_t b[2]) {
-    for (int r = 0; r < 2; ++r) {
-        b[r] = onehot[q0 + mk_b_col(lane) + mk_b_row(lane, r, 0) / 4];
-    }
+// byte offset of lane k (0-31) of read k-mer n (0-159) in the B image
+__host__ __device__ inline int mk_b_offset(int n, int k) {
+    return (n >> 3) * MK_SBO + (k >> 4) * MK_LBO + (n & 7) * 16 + (k & 15);
 }
 
-// fold a tile's four dots into the running OR; mk_hit tests it for a dot
-// of k (dots lie in [0, k] and k = 8 is the only one with bit 3 set)
-__host__ __device__ inline uint32_t mk_fold(uint32_t acc, const int32_t d[4]) {
-    return acc | (uint32_t)d[0] | (uint32_t)d[1] | (uint32_t)d[2]
-           | (uint32_t)d[3];
+// the (k-mer, base) whose one-hot word is 32-bit word w of the B image,
+// the inverse of mk_b_offset(n, 4 j) / 4: consecutive threads write
+// consecutive words
+__host__ __device__ inline int mk_b_word_kmer(int w) {
+    return (w >> 6) * 8 + ((w >> 2) & 7);
+}
+__host__ __device__ inline int mk_b_word_base(int w) {
+    return ((w >> 5) & 1) * 4 + (w & 3);
+}
+
+// word w of the B image of the read k-mers from slab position 0 of bytes,
+// n of them readable: the one-hot word of base j of k-mer n, 0 past them
+__host__ __device__ inline uint32_t mk_b_word(const uint8_t* bytes, int n,
+                                              int w) {
+    return mk_word(bytes, n, mk_b_word_kmer(w) + mk_b_word_base(w));
+}
+
+// the wgmma shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+// Format"): bits 0-13 the start address / 16, 16-29 the leading byte offset
+// / 16, 32-45 the stride byte offset / 16, 49-51 the base offset (0), 62-63
+// the swizzle mode (0: none)
+__host__ __device__ inline uint64_t mk_desc(uint32_t address, int lbo,
+                                            int sbo) {
+    return (uint64_t)((address & 0x3ffff) >> 4)
+           | (uint64_t)((lbo >> 4) & 0x3fff) << 16
+           | (uint64_t)((sbo >> 4) & 0x3fff) << 32;
+}
+
+// the shared address a descriptor of a K-major, unswizzled operand names
+// for (column n, lane k), from its fields alone: the core matrix (n / 8,
+// k / 16) at n / 8 strides and k / 16 leading offsets from the start, then
+// row n % 8 of 16 bytes and byte k % 16 inside it
+__host__ __device__ inline uint32_t mk_desc_address(uint64_t desc, int n,
+                                                    int k) {
+    const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+    const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
+    const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+    return start + (n >> 3) * sbo + (k >> 4) * lbo + (n & 7) * 16 + (k & 15);
+}
+
+// fold a group's dots into the running OR; mk_hit tests it for a dot of k
+// in any tile (a tile's dots lie in [0, k], its digit, and k = 8 is the
+// only one with bit 3 set); mk_hit_tile names the first such tile
+// (eight independent ORs, so the fold is no chain of N dependent steps)
+template <int N>
+__host__ __device__ inline uint32_t mk_fold(uint32_t acc, const int32_t* d) {
+    uint32_t part[8] = {};
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int i = 0; i < N; ++i) part[i & 7] |= (uint32_t)d[i];
+    return acc | ((part[0] | part[1]) | (part[2] | part[3]))
+           | ((part[4] | part[5]) | (part[6] | part[7]));
 }
 __host__ __device__ inline bool mk_hit(uint32_t acc) {
-    return (acc & MK_K) != 0;
+    return (acc & MK_HIT_MASK) != 0;
+}
+__host__ __device__ inline int mk_hit_tile(uint32_t acc) {
+    for (int j = 0; j < MK_GROUP; ++j) {
+        if (acc & (uint32_t)MK_K << (4 * j)) return j;
+    }
+    return -1;
 }
 
-// read tiles of a row of L bytes: ceil((L - k + 1) / 16), 0 when L < k
-__host__ __device__ inline int mk_read_tiles(int L) {
-    return L >= MK_K ? (L - MK_K + MK_TILE_M) / MK_TILE_M : 0;
+// slabs of MK_N read k-mers in a read of L bytes, 0 when L < k
+__host__ __device__ inline int mk_slabs(int L) {
+    return L >= MK_K ? (L - MK_K + MK_N) / MK_N : 0;
 }
 
-// the read tiles a warp holds in registers at once: 10 cover a read of up
-// to 167 bytes (the bench's 152, a 150 bp read); longer reads take their
-// tiles 10 at a time, each group against the whole window. A group always
-// runs all 10: a tile past the read's last k-mer holds only k-mers that
-// run off the read, each with a zero base, so none reaches a dot of k
-// (a per-tile guard made the full product 17 % slower on an H100)
-constexpr int MK_GROUP = 10;
+// stages of MK_CHUNK window k-mers in a window of W bytes, 0 when W < k
+__host__ __device__ inline int mk_chunks(int W) {
+    return W >= MK_K ? (W - MK_K + MK_CHUNK) / MK_CHUNK : 0;
+}
+
+// a stage of a block's schedule: slab slab of row row's read against chunk
+// chunk of its window; row -1 when the block's rows are done
+struct MkStage {
+    int row, slab, chunk;
+};
+
+// a block's copy cursor: its rows block, block + grid, ... below n, each as
+// slabs x chunks stages, slab by slab; the copies run MK_STAGES - 1 stages
+// ahead of the stage in use, so the next row's first stages are copied
+// while the block still works on a row. next() gives the stage to copy and
+// moves on; what is left of the row decided (by a hit) is not copied, its
+// stages already copied are waited for and skipped by the block
+struct MkCursor {
+    int row, slab, chunk;
+
+    __host__ __device__ MkStage next(int n, int grid, int slabs, int chunks,
+                                     int decided) {
+        if (row == decided) {
+            row += grid;
+            slab = chunk = 0;
+        }
+        if (row >= n) return {-1, 0, 0};
+        const MkStage s = {row, slab, chunk};
+        if (++chunk == chunks) {
+            chunk = 0;
+            if (++slab == slabs) {
+                slab = 0;
+                row += grid;
+            }
+        }
+        return s;
+    }
+};
+
+// the 16-byte aligned span a stage copies for n bytes from address a: it
+// starts at a rounded down to 16 (the bytes sit *shift past it) and holds a
+// multiple of 16 bytes
+__host__ __device__ inline uint32_t mk_span(uint64_t a, int n, int* shift) {
+    *shift = (int)(a & 15);
+    return (uint32_t)((*shift + n + 15) & ~15);
+}
 
 }  // namespace arriba

@@ -4,13 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --against KERNEL SOURCE [SOURCE ...]
     python3 chip_smoke.py --instruction-rates
+    python3 chip_smoke.py --k4-occupancy
 
 The second form only times one kernel (accept_wavefront, low_entropy,
 smith_waterman or mxu_kmer_screen) built from other sources against this
-checkout's build (compare); a SOURCE is a csrc directory, such as an
-earlier commit's unpacked with ``git archive``. ``--k1-against SOURCE ...`` is ``--against
+checkout's build (compare; K4's builds also go through its stress step);
+a SOURCE is a csrc directory, such as an earlier commit's unpacked with
+``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
-16x2 instructions K3's cells run against LOP3's (instruction_rates).
+16x2 instructions K3's cells run against LOP3's (instruction_rates). The
+fourth times K4 on the full product at 1-4 rows an SM (mxu_occupancy).
 Phases of the first (any failure exits non-zero, and no result line is
 printed):
 
@@ -28,8 +31,13 @@ printed):
    scores) at 65,536 rows x 256 read codes x 256 window codes; K4 (the
    one-hot 8-mer screen on the int8 tensor cores) at the JAX package's
    bench shape, 512 x 152 x 8,008, on its bench rows, on rows with no hit
-   (the full product), with PAD tails and bytes above 4, and at 333 x 45
-   x 1,001 (MXU_CASES). Kernel time
+   (the full product), with PAD tails and bytes above 4, at 333 x 45 x
+   1,001, and on 4,096 rows that mix early, late and no hits, more rows
+   than K4 has blocks (MXU_CASES), then K4's stress step: 200 launches on
+   the first 64 bench rows and 200 on all 512, 50 on 4,096 mixed rows at
+   one and at two slabs of read k-mers, every verdict checked
+   (mxu_stress).
+   Kernel time
    is the median of 20 CUDA-event timed windows after a warm-up, inputs
    checked and output allocated ahead: single launches for K1, whose output
    is zeroed before each, windows of 10 launches for K2, K3 and K4, counted
@@ -62,7 +70,9 @@ printed):
    over the whole fusion table, the stats step), equal between the two and
    with the host fusion table; K3 must have launched in this phase.
 6. K4's caller: realign.mxu_shared_kmer_mask on the bench rows, as the JAX
-   package's bench calls its twin, equal to the sorted screen (mxu_path).
+   package's bench calls its twin, equal to the sorted screen, and the
+   bench's other number: the port's sorted screen (shared_kmer_mask, plain
+   torch) timed on the same rows (mxu_path).
 7. The cohort runner: python -m arriba_tpu_torch.parallel.cohort on the
    genome-scale sample listed three times, three workers on the one card
    under run C's environment with jax blocked; each worker's outputs equal
@@ -567,25 +577,33 @@ def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
 K2_K3_BATCH = 10
 
 
-def mxu_inputs(case: str, seed: int = 31, N: int = 512, L: int = 152,
-               W: int = 8008):
+def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
+               L: int = 152, W: int = 8008):
     """K4's phase-2 inputs (reads uint8 [N, L], windows uint8 [N, W]) by
-    case. 'bench': the JAX package's bench row (bench.py:650-655), random
-    codes 0-3 with a read 8-mer planted in the window of every other row;
-    at 145 x 8,001 k-mer pairs a row, ~18 chance hits are expected too, so
-    nearly every row stops early. 'no_hit': reads over codes {0, 1},
-    windows over {2, 3}: no shared 8-mer anywhere, the full product.
+    case, N rows (default 512, 4,096 for 'mixed'). 'bench': the JAX
+    package's bench row (bench.py:650-655), random codes 0-3 with a read
+    8-mer planted in the window of every other row; at 145 x 8,001 k-mer
+    pairs a row, ~18 chance hits are expected too, so nearly every row
+    stops early. 'no_hit': reads over codes {0, 1}, windows over {2, 3}:
+    no shared 8-mer anywhere, the full product.
     'pad': the no_hit background with PAD (4) tails and bytes 5-255, and
     by row % 4 a clean planted 8-mer (a hit), a planted 8-mer holding a
     byte above 4 in both (none: such a byte one-hots to zero), one holding
     PAD (none), nothing (none). 'odd': N, L and W that are not multiples
     of the 16 x 8 tiles (333 x 45 x 1,001), seeds planted in every third
-    row."""
+    row. 'mixed': the no_hit background with, by a random kind a row, no
+    hit, or a read 8-mer (from anywhere in the read) planted in the first
+    16th of the window, anywhere in it, or at its last k-mer; given more
+    rows than the card holds blocks of K4 (each block then takes rows in
+    turn), a block meets rows that a hit decides early next to rows that
+    run to the window's end."""
     import numpy as np
 
     from arriba_tpu_torch.ops.encode import PAD_CODE
 
     rng = np.random.default_rng(seed)
+    if N is None:
+        N = 4096 if case == "mixed" else 512
     if case == "odd":
         N, L, W = 333, 45, 1001
     if case in ("bench", "odd"):
@@ -599,6 +617,16 @@ def mxu_inputs(case: str, seed: int = 31, N: int = 512, L: int = 152,
     reads = rng.integers(0, 2, (N, L)).astype(np.uint8)
     windows = rng.integers(2, 4, (N, W)).astype(np.uint8)
     if case == "no_hit":
+        return reads, windows
+    if case == "mixed":
+        R, WK = L - 7, W - 7
+        kind = rng.integers(0, 4, N)
+        for row in np.flatnonzero(kind):
+            at = (int(rng.integers(0, max(1, WK // 16))) if kind[row] == 1
+                  else int(rng.integers(0, WK)) if kind[row] == 2
+                  else WK - 1)
+            start = int(rng.integers(0, R))
+            windows[row, at:at + 8] = reads[row, start:start + 8]
         return reads, windows
     if case != "pad":
         raise ValueError(f"no K4 case {case}")
@@ -630,12 +658,11 @@ def mxu_work(reads, windows) -> dict:
     window k-mers, in order, up to and including the first equal to a read
     k-mer (both over codes 0-3 only), or against all WK = W - 7 of them for
     a row with none, 32 multiply-adds a pair ("macs", what the bound
-    counts); the full product's multiply-adds, N x R x WK x 32. Also, as a
-    diagnostic of the kernel's own waste, the 16 x 8 x 32 MMA tiles its
-    order issues up to each row's first hit ("tiles": whole read tiles
-    against whole window tiles), each row's first such window tile (-1 for
-    none) and its verdict, for checks against the plain version and the
-    kernel's emulation."""
+    counts); the full product's multiply-adds, N x R x WK x 32; each
+    row's first tile with a hit in the kernel's order (the read's slabs of
+    160 k-mers in turn, each against the window's tiles of 64 k-mers: slab
+    x the window's tiles + window tile; -1 for none) and its verdict, for
+    checks against the plain version and the kernel's emulation."""
     import torch
 
     N, L = reads.shape
@@ -643,7 +670,7 @@ def mxu_work(reads, windows) -> dict:
     R, WK = L - 7, W - 7
     first = torch.full((N,), -1, dtype=torch.int64, device=reads.device)
     if R <= 0 or WK <= 0:
-        return {"macs": 0, "tiles": 0, "full_macs": 0, "first_tile": first,
+        return {"macs": 0, "full_macs": 0, "first_tile": first,
                 "verdict": first >= 0}
 
     def kmers(x, n_pos, invalid):
@@ -655,23 +682,30 @@ def mxu_work(reads, windows) -> dict:
             valid &= code <= 3
         return torch.where(valid, value, invalid)
 
-    read_kmers = torch.sort(kmers(reads, R, -1), dim=1).values
+    def first_match(read_kmers, window_kmers):
+        """(any window k-mer equals one of read_kmers, index of the first)"""
+        ordered = torch.sort(read_kmers, dim=1).values
+        index = torch.searchsorted(ordered, window_kmers).clamp(
+            max=ordered.shape[1] - 1)
+        found = torch.gather(ordered, 1, index) == window_kmers
+        return found.any(dim=1), found.to(torch.uint8).argmax(dim=1)
+
+    read_kmers = kmers(reads, R, -1)
     window_kmers = kmers(windows, WK, -2)
-    index = torch.searchsorted(read_kmers, window_kmers).clamp(max=R - 1)
-    found = torch.gather(read_kmers, 1, index) == window_kmers
-    hit = found.any(dim=1)
-    first_kmer = found.to(torch.uint8).argmax(dim=1)
+    hit, first_kmer = first_match(read_kmers, window_kmers)
     macs = int(torch.where(hit, first_kmer + 1, WK).sum()) * R * 32
-    first = torch.where(hit, first_kmer // 8, -1)
-    window_tiles = -(-WK // 8)
-    read_tiles = -(-R // 16)
-    tiles = int(torch.where(hit, first + 1, window_tiles).sum()) * read_tiles
-    return {"macs": macs, "tiles": tiles, "full_macs": N * R * WK * 32,
+    slab, window_tiles = 160, -(-WK // 64)
+    for s in reversed(range(0, R, slab)):
+        slab_hit, slab_first = first_match(read_kmers[:, s:s + slab],
+                                           window_kmers)
+        first = torch.where(slab_hit, s // slab * window_tiles
+                            + slab_first // 64, first)
+    return {"macs": macs, "full_macs": N * R * WK * 32,
             "first_tile": first, "verdict": hit}
 
 
 # K4's phase-2 cases (mxu_inputs), the first at the bench's shape
-MXU_CASES = ("bench", "no_hit", "pad", "odd")
+MXU_CASES = ("bench", "no_hit", "pad", "odd", "mixed")
 
 
 def onehot_product_ms(reads, windows) -> float:
@@ -694,13 +728,89 @@ def onehot_product_ms(reads, windows) -> float:
     return ms
 
 
+# K4's stress step: (mxu_inputs case, rows, read length, launches), each
+# verdict held against the plain verdict. The bench rows are the first 64
+# and all 512 of case (a); the mixed rows, 4,096 at one and at two slabs of
+# read k-mers, outnumber the blocks K4 launches on an H100 (132 SMs x 4),
+# so each block takes ~8 rows in turn.
+MXU_STRESS = (("bench", 64, 152, 200), ("bench", 512, 152, 200),
+              ("mixed", 4096, 152, 50), ("mixed", 4096, 300, 50))
+
+
+def mxu_stress(launch, label: str) -> int:
+    """K4's stress step: launch(reads, windows, out) on each set of rows
+    of MXU_STRESS as many times as it says, every verdict against the plain
+    verdict computed once; out is filled with 2 before each launch, so a
+    row left unwritten shows too. A mismatch is a SystemExit that names the
+    build, the case, the launch and the first rows that differ. Returns the
+    launches made."""
+    import torch
+
+    from arriba_tpu_torch.ops import realign
+
+    count = 0
+    for case, rows, L, repeats in MXU_STRESS:
+        reads, windows = mxu_inputs(case, N=max(rows, 512), L=L)
+        r, w = (torch.from_numpy(x[:rows].copy()).to("cuda")
+                for x in (reads, windows))
+        want = realign.mxu_shared_kmer_mask_plain(r, w).to(torch.uint8)
+        if case == "mixed" and not 0 < int(want.sum()) < rows:
+            raise SystemExit(f"K4's mixed stress rows ({rows} x {L}) do not "
+                             f"mix hits and rows without one")
+        out = torch.empty(rows, dtype=torch.uint8, device="cuda")
+        for repeat in range(repeats):
+            out.fill_(2)
+            launch(r, w, out)
+            bad = torch.nonzero(out != want).flatten()[:8]
+            if len(bad):
+                raise SystemExit(
+                    f"K4 ({label}) disagrees with its plain version on the "
+                    f"first {rows} {case} rows of length {L} at launch "
+                    f"{repeat + 1} of {repeats}: rows {bad.tolist()} give "
+                    f"{out[bad].tolist()}, the plain version "
+                    f"{want[bad].tolist()}")
+            count += 1
+    log(f"K4 stress ({label}): {count} launches, every verdict equal to the "
+        f"plain version")
+    return count
+
+
+def mxu_occupancy() -> None:
+    """K4 (this checkout's build) on rows with no hit, the full product
+    (mxu_inputs 'no_hit' at the bench's widths), at 1, 2, 3 and 4 rows an
+    SM: K4 runs a block a row, all at once at these counts. If the time
+    stays flat as the rows grow, each block's own chain of dependent steps
+    holds K4 (latency); if it grows with them, a unit the blocks of an SM
+    share does (throughput). One JSON line: rows an SM -> ms a launch
+    (median of 20 windows of K2_K3_BATCH launches)."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {}
+    for per_sm in (1, 2, 3, 4):
+        r, w = (torch.from_numpy(x).to("cuda")
+                for x in mxu_inputs("no_hit", N=per_sm * sms))
+        out = torch.empty(len(r), dtype=torch.uint8, device="cuda")
+        result[per_sm] = cuda_ms(
+            lambda: kernels.launch_mxu_kmer_screen(r, w, out), 20,
+            batch=K2_K3_BATCH)
+        if bool(out.any()):
+            raise SystemExit("K4 finds a hit in rows that have none")
+        log(f"K4 no_hit, {per_sm} rows an SM ({len(r)} rows): "
+            f"{result[per_sm]:.4f} ms")
+    print(json.dumps({"k4_occupancy": {"sms": sms, "ms": result}}))
+
+
 def check_mxu() -> dict:
     """K4 through realign.mxu_shared_kmer_mask against its plain version on
     the card, exactly, on each case of MXU_CASES, with each case's launch
     time (median of 20 windows of K2_K3_BATCH launches), its bounds at the
     int8 tensor-core rate (the k-mer pairs up to each row's first hit,
     mxu_work, and the full product) and the plain version's time; library_ms (the bench and
-    no_hit cases) is onehot_product_ms. Returns K4's record."""
+    no_hit cases) is onehot_product_ms. Then the stress step (mxu_stress).
+    Returns K4's record."""
     import torch
 
     from arriba_tpu_torch import kernels
@@ -718,7 +828,8 @@ def check_mxu() -> dict:
         expected = {"no_hit": hits == 0, "bench": hits == len(reads),
                     "pad": want.cpu().tolist() == [row % 4 == 0 for row in
                                                    range(len(reads))],
-                    "odd": 0 < hits < len(reads)}[name]
+                    "odd": 0 < hits < len(reads),
+                    "mixed": 0 < hits < len(reads)}[name]
         if err != 0 or not torch.equal(work["verdict"], want):
             raise SystemExit(f"K4 disagrees with its plain version ({name})")
         if not expected:
@@ -737,18 +848,17 @@ def check_mxu() -> dict:
                        "hits": hits, "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "macs": work["macs"],
-                       "tiles": work["tiles"],
                        "full_product_bound_ms": full_ms}
         if name in ("bench", "no_hit"):
             cases[name]["library_ms"] = onehot_product_ms(r, w)
         log(f"K4 {name}: {hits}/{len(reads)} rows share an 8-mer, equal to "
             f"the plain version; {ms:.4f} ms a launch, plain {plain_ms:.4f} "
-            f"ms; {2 * work['macs']} int8 operations to the first hits "
-            f"({work['tiles']} MMA tiles in K4's order), bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%}); full "
+            f"ms; {2 * work['macs']} int8 operations to the first hits, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%}); full "
             f"product {full_ms:.4f} ms ({full_ms / ms:.1%})"
             + (f"; torch.bmm of the one-hots {cases[name]['library_ms']:.4f}"
                f" ms" if "library_ms" in cases[name] else ""))
+    mxu_stress(kernels.launch_mxu_kmer_screen, "this checkout")
     main = cases["bench"]
     return {"name": "mxu_kmer_screen", "route": "cuda",
             "source": "arriba_tpu_torch/kernels/csrc/mxu_kmer_screen.cu",
@@ -1096,11 +1206,13 @@ def check_sharded(state, n: int) -> int:
 # ---------------------------------------------------------------------------
 # phase 6: the one-hot 8-mer screen as its caller drives it
 
-def mxu_path() -> int:
+def mxu_path() -> tuple:
     """realign.mxu_shared_kmer_mask on the bench's inputs, as the JAX
     package's bench calls its twin (bench.py:650-660; no CLI path calls
     it), held against the sorted 8-mer screen on the card. Returns K4's
-    launches in it, counted from 0."""
+    launches in it, counted from 0, and, as the bench's other number, the
+    milliseconds of the port's sorted screen (realign.shared_kmer_mask,
+    plain torch) on the same rows (median of 20 calls)."""
     import torch
 
     from arriba_tpu_torch import kernels
@@ -1117,7 +1229,9 @@ def mxu_path() -> int:
     log(f"mxu screen: {int(verdict.sum())}/{len(r)} rows share an 8-mer, "
         f"equal to the sorted screen; kernel launches "
         f"{dict(kernels.launch_counts)}")
-    return launches
+    sorted_ms = cuda_ms(lambda: realign.shared_kmer_mask(r, w), 20)
+    log(f"the sorted screen on the bench rows: {sorted_ms:.4f} ms")
+    return launches, sorted_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1322,7 +1436,7 @@ def against_cases(kernel: str) -> dict:
     C entry point before the stream, setup run before each launch or None,
     a check that the output equals the plain version's)}. K1: the main,
     low-complexity and mixed batches; K2 and K3: their phase-2 batch; K4:
-    its bench and no_hit cases."""
+    its phase-2 cases (MXU_CASES)."""
     import numpy as np
     import torch
 
@@ -1359,7 +1473,7 @@ def against_cases(kernel: str) -> dict:
         cases["main"] = ((r, w, out, *r.shape, w.shape[1], 1, -1, -1), None,
                          lambda: torch.equal(out, want))
     elif kernel == "mxu_kmer_screen":
-        for name in ("bench", "no_hit"):
+        for name in MXU_CASES:
             r, w = (torch.from_numpy(x).to(cuda) for x in mxu_inputs(name))
             out = torch.empty(len(r), dtype=torch.uint8, device=cuda)
             want = realign.mxu_shared_kmer_mask_plain(r, w)
@@ -1380,7 +1494,9 @@ def compare(kernel: str, sources: list) -> None:
     times the launches (median of 20 windows of K2_K3_BATCH, or of single
     launches where the output is zeroed before each) in the order this
     checkout, the sources, the sources reversed, this checkout, and one
-    JSON line gives the mean of each build's two times."""
+    JSON line gives the mean of each build's two times. K4's builds first
+    go through the stress step each (mxu_stress), which checks every
+    verdict of every repeat."""
     import ctypes
 
     import torch
@@ -1422,6 +1538,15 @@ def compare(kernel: str, sources: list) -> None:
         return launch
 
     result = {}
+    if kernel == "mxu_kmer_screen":
+        def stress_launch(label):
+            def launch(r, w, out):
+                launcher(label, (r, w, out, *r.shape, w.shape[1]))()
+            return launch
+
+        result["stress_launches"] = {
+            label: mxu_stress(stress_launch(label), label)
+            for label in entries}
     for name, (args, setup, check) in against_cases(kernel).items():
         times: dict = {label: [] for label in entries}
         for label in list(entries) + list(reversed(entries)):
@@ -1562,6 +1687,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--instruction-rates"]:
         instruction_rates()
         return 0
+    if sys.argv[1:2] == ["--k4-occupancy"]:
+        mxu_occupancy()
+        return 0
     clock = subprocess.run(["nvidia-smi", "-i", "0",
                             "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader"],
@@ -1635,7 +1763,7 @@ def main() -> int:
 
     # phase 6: K4's caller
     t0 = time.perf_counter()
-    launches["mxu_kmer_screen"] = mxu_path()
+    launches["mxu_kmer_screen"], sorted_ms = mxu_path()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     # phase 7: the cohort runner, every worker on the card
@@ -1653,6 +1781,8 @@ def main() -> int:
     where = {"smith_waterman": "phase 5", "mxu_kmer_screen": "phase 6"}
     for record in records:
         record["launches"] = launches[record["name"]]
+        if record["name"] == "mxu_kmer_screen":
+            record["sorted_screen_ms"] = sorted_ms
         log(f"{record['name']}: kernel {record['ms']:.4f} ms, plain "
             f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
             f"({record['bound_by']}, {record['bound_ms'] / record['ms']:.1%} "
@@ -1663,11 +1793,12 @@ def main() -> int:
                              f"path")
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
-    # K1 adds its every-diagonal bound, K4 its full-product bound, both
-    # their phase-2 cases
+    # K1 adds its every-diagonal bound, K4 its full-product bound and phase
+    # 6's time of the sorted screen, both their phase-2 cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "walk_all_bound_ms", "full_product_bound_ms", "cases")
+            "walk_all_bound_ms", "full_product_bound_ms", "sorted_screen_ms",
+            "cases")
     print(json.dumps({"kernels": [{key: record[key] for key in keys
                                    if key in record}
                                   for record in records]}))

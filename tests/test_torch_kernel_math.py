@@ -45,36 +45,52 @@ HARNESS = r"""
 #include "mxu_kmer_screen.cuh"
 #include "smith_waterman.cuh"
 
-// K4's mma.sync.m16n8k32 s8 for one warp, emulated from the fragment
-// layout: the 32 lanes' registers scattered into A (16 x 32) and B (32 x 8)
-// by mk_a_row / mk_a_col and mk_b_row / mk_b_col, multiplied, and each
-// lane's four dots gathered by mk_c_row / mk_c_col
-static void mk_mma_warp(const uint32_t a[32][4], const uint32_t b[32][2],
-                        int32_t d[32][4]) {
-    int8_t A[16][32], B[32][8];
-    for (int lane = 0; lane < 32; ++lane) {
-        for (int r = 0; r < 4; ++r) {
-            for (int byte = 0; byte < 4; ++byte) {
-                A[arriba::mk_a_row(lane, r)][arriba::mk_a_col(lane, r, byte)] =
-                    (int8_t)(a[lane][r] >> (8 * byte));
+// K4's group of MK_GROUP wgmma.m64n160k32 s8 for one warpgroup, emulated
+// from the layouts: tile j's 128 threads' A registers scattered into A_j
+// (64 x 32) by mk_a_row / mk_a_col (warp w at rows 16 w ..), its B (32 x
+// 160) read from image mk_tile_image(j) at the addresses the descriptor's
+// fields name (mk_desc_address, the images at shared addresses base[i]),
+// the products summed into one accumulator as the kernel chains them;
+// returns the OR of all its entries (the verdict needs no D layout)
+static uint32_t mk_group_fold(const uint32_t a[][128][4],
+                              const uint8_t* const images[],
+                              const uint32_t base[], const uint64_t desc[]) {
+    static int8_t A[64][32], B[32][arriba::MK_N];
+    static int32_t D[64][arriba::MK_N];
+    for (int i = 0; i < 64; ++i) {
+        for (int n = 0; n < arriba::MK_N; ++n) D[i][n] = 0;
+    }
+    for (int j = 0; j < arriba::MK_GROUP; ++j) {
+        for (int thread = 0; thread < 128; ++thread) {
+            const int lane = thread & 31;
+            for (int r = 0; r < 4; ++r) {
+                for (int byte = 0; byte < 4; ++byte) {
+                    A[16 * (thread >> 5) + arriba::mk_a_row(lane, r)]
+                     [arriba::mk_a_col(lane, r, byte)] =
+                        (int8_t)(a[j][thread][r] >> (8 * byte));
+                }
             }
         }
-        for (int r = 0; r < 2; ++r) {
-            for (int byte = 0; byte < 4; ++byte) {
-                B[arriba::mk_b_row(lane, r, byte)][arriba::mk_b_col(lane)] =
-                    (int8_t)(b[lane][r] >> (8 * byte));
+        const int img = arriba::mk_tile_image(j);
+        for (int k = 0; k < 32; ++k) {
+            for (int n = 0; n < arriba::MK_N; ++n) {
+                B[k][n] = (int8_t)images[img][arriba::mk_desc_address(
+                    desc[img], n, k) - base[img]];
+            }
+        }
+        for (int i = 0; i < 64; ++i) {
+            for (int n = 0; n < arriba::MK_N; ++n) {
+                int32_t dot = 0;
+                for (int k = 0; k < 32; ++k) dot += A[i][k] * B[k][n];
+                D[i][n] += dot;
             }
         }
     }
-    for (int lane = 0; lane < 32; ++lane) {
-        for (int r = 0; r < 4; ++r) {
-            const int i = arriba::mk_c_row(lane, r);
-            const int j = arriba::mk_c_col(lane, r);
-            int32_t dot = 0;
-            for (int k = 0; k < 32; ++k) dot += A[i][k] * B[k][j];
-            d[lane][r] = dot;
-        }
+    uint32_t acc = 0;
+    for (int i = 0; i < 64; ++i) {
+        acc = arriba::mk_fold<arriba::MK_N>(acc, D[i]);
     }
+    return acc;
 }
 
 // K3's warp for a pair of rows (b, wb null: the dummy row of an odd
@@ -281,41 +297,61 @@ void sw_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
     }
 }
 
-// K4's layout: the (lane, register, byte) slots of A, B and C that land on
-// each matrix element; every element must be held exactly once
+// K4's layouts. A: the (thread, register, byte) slots of the warpgroup's
+// 64 x 32 A, every element held exactly once; the B image's words: word w
+// holds base mk_b_word_base(w) of k-mer mk_b_word_kmer(w), at byte 4 w
 int mk_layout_errors() {
-    int a[16][32] = {}, b[32][8] = {}, c[16][8] = {};
-    for (int lane = 0; lane < 32; ++lane) {
+    int a[64][32] = {};
+    for (int thread = 0; thread < 128; ++thread) {
         for (int r = 0; r < 4; ++r) {
             for (int byte = 0; byte < 4; ++byte) {
-                const int col = arriba::mk_a_col(lane, r, byte);
-                a[arriba::mk_a_row(lane, r)][col]++;
-            }
-            c[arriba::mk_c_row(lane, r)][arriba::mk_c_col(lane, r)]++;
-        }
-        for (int r = 0; r < 2; ++r) {
-            for (int byte = 0; byte < 4; ++byte) {
-                b[arriba::mk_b_row(lane, r, byte)][arriba::mk_b_col(lane)]++;
+                a[16 * (thread >> 5) + arriba::mk_a_row(thread & 31, r)]
+                 [arriba::mk_a_col(thread & 31, r, byte)]++;
             }
         }
     }
     int errors = 0;
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < 64; ++i) {
         for (int k = 0; k < 32; ++k) errors += a[i][k] != 1;
-        for (int j = 0; j < 8; ++j) errors += c[i][j] != 1;
     }
-    for (int k = 0; k < 32; ++k) {
-        for (int j = 0; j < 8; ++j) errors += b[k][j] != 1;
+    for (int w = 0; w < arriba::MK_IMAGE / 4; ++w) {
+        errors += arriba::mk_b_offset(arriba::mk_b_word_kmer(w),
+                                      4 * arriba::mk_b_word_base(w)) != 4 * w;
     }
     return errors;
 }
 
-// the A matrix (16 x 32 int8) of the read tile at p0 as the lanes'
-// fragments (mk_a_fragment) lay it out
-void mk_a_matrix(const uint8_t* read, int L, int p0, int8_t* out) {
+// the B image: every (k-mer n, lane k) of the 160 x 32 at one distinct byte
+// of the MK_IMAGE, and a descriptor of the image at shared address base
+// (multiples of 16 below 2^18) names that byte from its fields alone
+int mk_image_errors(uint32_t base) {
+    std::vector<int> seen(arriba::MK_IMAGE, 0);
+    const uint64_t desc = arriba::mk_desc(base, arriba::MK_LBO,
+                                          arriba::MK_SBO);
+    int errors = 0;
+    for (int n = 0; n < arriba::MK_N; ++n) {
+        for (int k = 0; k < 32; ++k) {
+            const int at = arriba::mk_b_offset(n, k);
+            if (at < 0 || at >= arriba::MK_IMAGE) {
+                ++errors;
+                continue;
+            }
+            errors += seen[at]++ != 0;
+            errors += arriba::mk_desc_address(desc, n, k) != base + at;
+        }
+    }
+    return errors;
+}
+
+// the A matrix (16 x 32 int8) of the 16 k-mers at p0 as one warp's
+// fragments (mk_a_fragment over the bytes' one-hot words, mk_word) lay it
+// out
+void mk_a_matrix(const uint8_t* bytes, int n, int p0, int8_t* out) {
+    std::vector<uint32_t> words(p0 + 32);
+    for (int p = 0; p < p0 + 32; ++p) words[p] = arriba::mk_word(bytes, n, p);
     for (int lane = 0; lane < 32; ++lane) {
         uint32_t a[4];
-        arriba::mk_a_fragment(read, L, p0, lane, a);
+        arriba::mk_a_fragment(words.data(), p0, lane, a);
         for (int r = 0; r < 4; ++r) {
             for (int byte = 0; byte < 4; ++byte) {
                 out[arriba::mk_a_row(lane, r) * 32
@@ -326,73 +362,161 @@ void mk_a_matrix(const uint8_t* read, int L, int p0, int8_t* out) {
     }
 }
 
-// K4's block on each row as the kernel orders it: the read tiles in
-// groups of MK_GROUP, the window staged chunk by chunk as one-hot
-// words, each window tile's B fragments against every A fragment of the
-// group through the emulated product, the dots folded per lane and tested
-// for a hit across the warp. The warps of a block share a chunk's tiles
-// and stop at the first hit, which decides nothing the OR does not: here
-// one warp takes every tile in order and none stops, so first_tile[row]
-// is the first window tile (over all groups) with a dot of 8, -1 for
-// none. chunk: MK_CHUNK, or smaller to cross chunk edges in small windows.
-void mk_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
-             int64_t* first_tile, int n, int L, int W, int chunk) {
-    const int n_tiles = arriba::mk_read_tiles(L);
+// K4's blocks on their rows as the kernel schedules them: block b of grid
+// takes rows b, b + grid, ... in the order of its MkCursor, through a ring
+// of MK_STAGES slots filled MK_STAGES - 1 stages ahead of the stage in use
+// (a slot's fills counted as its mbarrier's phases), skipping what is left
+// of a row once a hit decides it. A stage is a slab of MK_N read k-mers
+// against chunk window k-mers (MK_CHUNK in the kernel; smaller multiples of
+// 64 to cross stage edges in small windows), its bytes as the kernel
+// stages them (the slab's MK_N + 7 read bytes and the chunk's chunk + 7
+// window bytes at most, code 0 past them, which a read outside the staged
+// bytes would turn into false hits). At a slab's first stage the block
+// writes the three scaled B images from mk_b_word, kept across stages as
+// the kernel keeps them in shared memory; at every stage the window bases
+// as one-hot words (mk_word); then each group of MK_GROUP tiles of 64
+// window k-mers: the 128 threads' scaled A from mk_a_fragment over those
+// words, the emulated products into one accumulator, the fold and the
+// block's vote. A tile past the stage's k-mers gets a zero A: the kernel's
+// stage of MK_CHUNK = 16 tiles never cuts a group, and past the window's
+// end its tiles hold only k-mers that run off it, which cannot reach k
+// either. The row stops at its first hit: first_tile[row] is that tile's
+// index in this order (slab s, window tile t: s x the window's tiles + t;
+// the group's digits name the tile), -1 for none. Returns the schedule's
+// faults: a wait on a slot whose fill has not come or came twice, a slot
+// refilled before its stage was taken, a copy still in flight when the
+// block ends, a stage multiplied against another slab's images, a verdict
+// written other than once a row.
+int mk_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
+            int64_t* first_tile, int n, int L, int W, int chunk, int grid) {
+    const uint32_t base[arriba::MK_IMAGES] = {0x400, 0x1800, 0x2c00};
+    uint64_t desc[arriba::MK_IMAGES];
+    std::vector<uint8_t> image[arriba::MK_IMAGES];
+    const uint8_t* images[arriba::MK_IMAGES];
+    for (int i = 0; i < arriba::MK_IMAGES; ++i) {
+        desc[i] = arriba::mk_desc(base[i], arriba::MK_LBO, arriba::MK_SBO);
+        image[i].resize(arriba::MK_IMAGE);
+        images[i] = image[i].data();
+    }
+    const int slabs = arriba::mk_slabs(L);
     const int n_kmers = W - arriba::MK_K + 1;
-    std::vector<uint32_t> onehot(chunk + 16);
-    std::vector<uint32_t> a(32 * 16 * 4);
-    for (int row = 0; row < n; ++row) {
-        const uint8_t* read = reads + (long)row * L;
-        const uint8_t* window = windows + (long)row * W;
-        int64_t first = -1;
-        for (int t0 = 0; t0 < n_tiles; t0 += arriba::MK_GROUP) {
-            for (int lane = 0; lane < 32; ++lane) {
-                for (int i = 0; i < arriba::MK_GROUP; ++i) {
-                    arriba::mk_a_fragment(read, L,
-                                          (t0 + i) * arriba::MK_TILE_M, lane,
-                                          &a[(lane * 16 + i) * 4]);
+    const int chunks = n_kmers > 0 ? (n_kmers + chunk - 1) / chunk : 0;
+    const int window_tiles = n_kmers > 0 ? (n_kmers + 63) / 64 : 0;
+    const int span = arriba::MK_GROUP * 64;
+    const int read_span = arriba::MK_N + arriba::MK_K - 1;
+    const int window_span = chunk + arriba::MK_K - 1;
+    std::vector<uint8_t> staged_read(read_span + 64);
+    std::vector<uint8_t> staged_window(window_span + 64);
+    std::vector<uint32_t> words(window_span);
+    std::vector<int> written(n, 0);
+    static uint32_t a[arriba::MK_GROUP][128][4];
+    int faults = 0;
+    for (int row = 0; row < n; ++row) first_tile[row] = -1;
+    if (slabs == 0 || chunks == 0) {
+        for (int row = 0; row < n; ++row) out[row] = 0;
+        return 0;
+    }
+    // the stage's products on the images, from its window bytes: the first
+    // hit's tile in the row's order, -1 for none
+    auto multiply = [&](const arriba::MkStage& s) -> int64_t {
+        const uint8_t* window = windows + (long)s.row * W;
+        const int q0 = s.chunk * chunk;
+        const int w_bytes = W - q0;
+        std::fill(staged_window.begin(), staged_window.end(), 0);
+        std::copy(window + q0, window + q0 + std::min(window_span, w_bytes),
+                  staged_window.begin());
+        for (int p = 0; p < window_span; ++p) {
+            words[p] = arriba::mk_word(staged_window.data(), w_bytes, p);
+        }
+        const int tiles = (std::min(chunk, n_kmers - q0) + 63) / 64;
+        const int groups = (tiles + arriba::MK_GROUP - 1) / arriba::MK_GROUP;
+        for (int g = 0; g < groups; ++g) {
+            for (int j = 0; j < arriba::MK_GROUP; ++j) {
+                for (int thread = 0; thread < 128; ++thread) {
+                    if (g * arriba::MK_GROUP + j >= tiles) {
+                        std::fill(a[j][thread], a[j][thread] + 4, 0u);
+                        continue;
+                    }
+                    arriba::mk_a_fragment(
+                        words.data(), g * span + j * 64 + 16 * (thread >> 5),
+                        thread & 31, a[j][thread], arriba::mk_a_shift(j));
                 }
             }
-            for (int c0 = 0; c0 < n_kmers; c0 += chunk) {
-                for (int i = 0; i < chunk + 16; ++i) {
-                    const int pos = c0 + i;
-                    onehot[i] = pos < W ? arriba::mk_onehot(window[pos]) : 0u;
-                }
-                const int tiles = (std::min(chunk, n_kmers - c0)
-                                   + arriba::MK_TILE_N - 1)
-                                  / arriba::MK_TILE_N;
-                for (int w = 0; w < tiles; ++w) {
-                    uint32_t b[32][2], acc[32] = {};
-                    for (int lane = 0; lane < 32; ++lane) {
-                        arriba::mk_b_fragment(onehot.data(),
-                                              w * arriba::MK_TILE_N, lane,
-                                              b[lane]);
-                    }
-                    for (int i = 0; i < arriba::MK_GROUP; ++i) {
-                        uint32_t ai[32][4];
-                        int32_t d[32][4];
-                        for (int lane = 0; lane < 32; ++lane) {
-                            for (int r = 0; r < 4; ++r) {
-                                ai[lane][r] = a[(lane * 16 + i) * 4 + r];
-                            }
-                        }
-                        mk_mma_warp(ai, b, d);
-                        for (int lane = 0; lane < 32; ++lane) {
-                            acc[lane] = arriba::mk_fold(acc[lane], d[lane]);
-                        }
-                    }
-                    bool hit = false;
-                    for (int lane = 0; lane < 32; ++lane) {
-                        hit |= arriba::mk_hit(acc[lane]);
-                    }
-                    const int64_t tile = c0 / arriba::MK_TILE_N + w;
-                    if (hit && (first < 0 || tile < first)) first = tile;
-                }
+            const uint32_t acc = mk_group_fold(a, images, base, desc);
+            if (arriba::mk_hit(acc)) {
+                return (int64_t)s.slab * window_tiles + q0 / 64 + g * 4
+                       + arriba::mk_hit_tile(acc);
             }
         }
-        out[row] = first >= 0;
-        first_tile[row] = first;
+        return -1;
+    };
+    for (int block = 0; block < grid; ++block) {
+        arriba::MkCursor cursor = {block, 0, 0};
+        arriba::MkStage ring[arriba::MK_STAGES];
+        int fills[arriba::MK_STAGES] = {};     // the slot's phases completed
+        bool in_flight[arriba::MK_STAGES] = {};
+        int decided = -1, image_row = -1, image_slab = -1;
+        auto issue = [&](int k) {
+            const int slot = k % arriba::MK_STAGES;
+            ring[slot] = cursor.next(n, grid, slabs, chunks, decided);
+            if (ring[slot].row >= 0) {
+                faults += in_flight[slot];
+                in_flight[slot] = true;
+                ++fills[slot];
+            }
+        };
+        for (int k = 0; k < arriba::MK_STAGES - 1; ++k) issue(k);
+        for (int k = 0;; ++k) {
+            issue(k + arriba::MK_STAGES - 1);
+            const int slot = k % arriba::MK_STAGES;
+            const arriba::MkStage s = ring[slot];
+            if (s.row < 0) break;
+            // the kernel waits for phase k / MK_STAGES of the slot's
+            // mbarrier by its parity: exactly that many fills before it
+            faults += fills[slot] != k / arriba::MK_STAGES + 1;
+            faults += !in_flight[slot];
+            in_flight[slot] = false;
+            if (s.row == decided) continue;
+            if (s.chunk == 0) {
+                const uint8_t* read = reads + (long)s.row * L;
+                const int r_bytes = L - s.slab * arriba::MK_N;
+                std::fill(staged_read.begin(), staged_read.end(), 0);
+                std::copy(read + s.slab * arriba::MK_N,
+                          read + s.slab * arriba::MK_N
+                              + std::min(read_span, r_bytes),
+                          staged_read.begin());
+                for (int w = 0; w < arriba::MK_IMAGE / 4; ++w) {
+                    const uint32_t word = arriba::mk_b_word(
+                        staged_read.data(), r_bytes, w);
+                    for (int i = 0; i < arriba::MK_IMAGES; ++i) {
+                        const uint32_t scaled = word << arriba::mk_b_shift(i);
+                        for (int byte = 0; byte < 4; ++byte) {
+                            image[i][4 * w + byte] =
+                                (uint8_t)(scaled >> (8 * byte));
+                        }
+                    }
+                }
+                image_row = s.row;
+                image_slab = s.slab;
+            }
+            faults += image_row != s.row || image_slab != s.slab;
+            const int64_t first = multiply(s);
+            if (first >= 0) {
+                decided = s.row;
+                first_tile[s.row] = first;
+            }
+            if (first >= 0
+                || (s.slab == slabs - 1 && s.chunk == chunks - 1)) {
+                out[s.row] = first >= 0;
+                ++written[s.row];
+            }
+        }
+        for (int slot = 0; slot < arriba::MK_STAGES; ++slot) {
+            faults += in_flight[slot];
+        }
     }
+    for (int row = 0; row < n; ++row) faults += written[row] != 1;
+    return faults;
 }
 
 // K3's 16x2 primitives as the host emulation computes them: 0 add.s16x2,
@@ -434,7 +558,8 @@ def harness(tmp_path_factory):
     lib.sw_primitive.restype = ctypes.c_uint32
     lib.mk_a_matrix.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
-    lib.mk_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    lib.mk_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    lib.mk_image_errors.argtypes = [ctypes.c_uint32]
     return lib
 
 
@@ -854,10 +979,11 @@ def test_smith_waterman_guard(L, W, params, ok):
 
 
 def test_mxu_fragment_layout_covers_each_element_once(harness):
-    """K4's m16n8k32 s8 layout helpers put every element of A, B and C in
-    exactly one (lane, register, byte), and a read tile's fragments lay out
-    its one-hot k-mers: A[i, 4j + c] = 1 iff read[p0 + i + j] == c <= 3
-    (0 past the read)."""
+    """K4's layout helpers put every element of the warpgroup's 64 x 32 A
+    in exactly one (thread, register, byte) and each word of the B image at
+    its own offset, and a warp's fragments lay out its 16 window k-mers
+    one-hot: A[i, 4j + c] = 1 iff bytes[p0 + i + j] == c <= 3 (0 past the
+    bytes)."""
     assert harness.mk_layout_errors() == 0
     rng = np.random.default_rng(12)
     L = 40
@@ -872,6 +998,16 @@ def test_mxu_fragment_layout_covers_each_element_once(harness):
                 if p < L and read[p] <= 3:
                     want[i, 4 * j + read[p]] = 1
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("base", [0, 0x400, 0x3ec00])
+def test_mxu_b_image_bytes_are_distinct_and_descriptor_addressed(harness,
+                                                                 base):
+    """Every element (read k-mer n, lane k) of K4's 160 x 32 B image lies
+    at one distinct byte of its 5,120, and the wgmma descriptor of the
+    image, decoded from its start, leading and stride fields, addresses
+    that byte, wherever the image sits in shared memory."""
+    assert harness.mk_image_errors(base) == 0
 
 
 def _mxu_rows_device_ops(above_4):
@@ -893,9 +1029,9 @@ def _mxu_rows_device_ops(above_4):
 
 
 def _mxu_rows_long(seed, n=8, L=300, W=600):
-    """Reads of 19 read tiles (two groups of registers), seeds planted from
-    read position 280 (the second group) in half the rows; a window of a
-    few chunk widths at a 64-k-mer chunk."""
+    """Reads of 293 k-mers (two slabs of 160), seeds planted from read
+    position 280 (the second slab) in half the rows; a window of several
+    stages at a 64-k-mer stage."""
     rng = np.random.default_rng(seed)
     reads = rng.integers(0, 2, (n, L)).astype(np.uint8)
     windows = rng.integers(2, 4, (n, W)).astype(np.uint8)
@@ -916,8 +1052,11 @@ def _mxu_rows_narrow(L, W):
     return reads, windows
 
 
-# (rows, window k-mers staged at a time): the kernel's chunk and one that
-# crosses chunk edges inside these windows
+# (rows, window k-mers staged at a time): the kernel's stage (MK_CHUNK,
+# 2,048) and smaller ones, multiples of its 64-k-mer tile, that cross stage
+# edges inside these windows; the mixed rows (early, late and no hits, at
+# one and two slabs) give the blocks that take rows in turn rows decided
+# early next to rows that run to the window's end
 _MK_CASES = {
     "device_ops": (lambda: _mxu_rows_device_ops(False), 2048),
     "device_ops_chunk_64": (lambda: _mxu_rows_device_ops(False), 64),
@@ -928,29 +1067,46 @@ _MK_CASES = {
     "narrow": (lambda: _mxu_rows_narrow(20, 12), 2048),
     "narrow_read_7": (lambda: _mxu_rows_narrow(7, 40), 2048),
     "narrow_window_7": (lambda: _mxu_rows_narrow(40, 7), 2048),
+    "mixed": (lambda: mxu_inputs("mixed", N=24, W=700), 128),
+    "mixed_long": (lambda: mxu_inputs("mixed", N=24, L=300, W=700), 128),
 }
+
+
+def _mk_emulate(harness, reads, windows, chunk, grid):
+    """K4's emulation (mk_rows) over the rows with grid blocks: verdicts
+    (bool [n]) and each row's first tile with a hit; no schedule fault."""
+    (n, L), W = reads.shape, windows.shape[1]
+    verdict = np.zeros(n, np.uint8)
+    first = np.zeros(n, np.int64)
+    faults = harness.mk_rows(_ptr(reads), _ptr(windows), _ptr(verdict),
+                             _ptr(first), n, L, W, chunk, grid)
+    assert faults == 0
+    return verdict != 0, first
 
 
 @pytest.mark.parametrize("case", list(_MK_CASES))
 def test_mxu_kmer_screen_emulation_matches_plain_and_jax(harness, case):
-    """K4's per-row procedure with the product emulated from its fragment
-    layout, against the port's plain version and the JAX package's
-    mxu_shared_kmer_mask (and, where every byte is a code 0-4, both sorted
-    screens); each row's first window tile with a hit against mxu_work,
-    which chip_smoke.py's bound counts from."""
+    """K4's blocks with the warpgroup product emulated from its A layout
+    and its B image read back through the descriptor, against the port's
+    plain version and the JAX package's mxu_shared_kmer_mask (and, where
+    every byte is a code 0-4, both sorted screens); each row's first
+    (slab, window tile) with a hit against mxu_work, which chip_smoke.py's
+    bound counts from. Once with a block a row, and once with 3 blocks,
+    each taking its rows in turn through the copy ring; neither with a
+    fault of the ring's schedule (mk_rows)."""
     make_rows, chunk = _MK_CASES[case]
     reads, windows = (np.ascontiguousarray(x) for x in make_rows())
     (n, L), W = reads.shape, windows.shape[1]
-    verdict = np.zeros(n, np.uint8)
-    first = np.zeros(n, np.int64)
-    harness.mk_rows(_ptr(reads), _ptr(windows), _ptr(verdict), _ptr(first),
-                    n, L, W, chunk)
+    verdict, first = _mk_emulate(harness, reads, windows, chunk, n)
     r, w = torch.from_numpy(reads), torch.from_numpy(windows)
     plain = realign.mxu_shared_kmer_mask_plain(r, w).numpy()
-    np.testing.assert_array_equal(verdict != 0, plain)
+    np.testing.assert_array_equal(verdict, plain)
     work = mxu_work(r, w)
     np.testing.assert_array_equal(first, work["first_tile"].numpy())
     np.testing.assert_array_equal(plain, work["verdict"].numpy())
+    in_turn = _mk_emulate(harness, reads, windows, chunk, 3)
+    np.testing.assert_array_equal(in_turn[0], plain)
+    np.testing.assert_array_equal(in_turn[1], first)
     if min(L, W) >= 8:                  # the JAX op needs one k-mer each
         xla = np.asarray(jax_realign.mxu_shared_kmer_mask(
             jnp.asarray(reads), jnp.asarray(windows)))

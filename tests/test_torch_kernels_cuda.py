@@ -183,7 +183,8 @@ def test_low_entropy_kernel_routes(cuda, L, short):
 
 # K4 on chip_smoke.py's phase-2 cases, (a)-(c) on the first rows of the
 # bench shape: the bench rows (early exits), no hit anywhere (the full
-# product), PAD tails and bytes above 4, and 333 x 45 x 1,001
+# product), PAD tails and bytes above 4, and 333 x 45 x 1,001 (the mixed
+# rows: test_mxu_kmer_screen_kernel_takes_rows_in_turn)
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,N", [("bench", 64), ("no_hit", 16),
                                     ("pad", 64), ("odd", 333)])
@@ -209,13 +210,16 @@ def test_mxu_kmer_screen_kernel_matches_plain(cuda, case, N):
         assert 0 < int(want.sum()) < N
 
 
-# odd N and one row; reads of 19 and 17 read tiles (two register groups)
-# against windows of several chunks; rows narrower than one tile; reads or
-# windows too short for an 8-mer; bytes 0-5 throughout
+# odd N and one row; reads of 293 and 256 k-mers (two slabs of 160)
+# against windows of several stages, and a read of two slabs against the
+# bench's window (seeds in the second slab); rows narrower than one tile;
+# reads or windows too short for an 8-mer, once with more rows than K4's
+# blocks have threads (each thread zeroes rows in turn); bytes 0-5
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,L,W", [(1, 152, 8008), (17, 300, 5000),
                                    (31, 263, 2100), (65, 20, 12),
-                                   (9, 7, 100), (9, 100, 7)])
+                                   (9, 7, 100), (9, 100, 7),
+                                   (24, 300, 8008), (70000, 7, 100)])
 def test_mxu_kmer_screen_kernel_shapes(cuda, N, L, W):
     gen = torch.Generator().manual_seed(N * 7 + L)
     reads = torch.randint(0, 6, (N, L), dtype=torch.uint8, generator=gen)
@@ -232,6 +236,30 @@ def test_mxu_kmer_screen_kernel_shapes(cuda, N, L, W):
         assert bool(want[::2].all())
     else:
         assert not bool(want.any())
+
+
+# more rows than K4 launches blocks (at most 16 blocks of 128 threads an
+# SM), so each block takes rows in turn and a row that a hit decides early
+# sits next to rows that run to the window's end; reads of one and of two
+# slabs of 160 k-mers; every launch's verdicts checked, out filled with 2
+# before each so that a row left unwritten shows
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [152, 300])
+def test_mxu_kmer_screen_kernel_takes_rows_in_turn(cuda, L):
+    from chip_smoke import mxu_inputs, mxu_work
+
+    reads, windows = (torch.from_numpy(x).to(cuda)
+                      for x in mxu_inputs("mixed", L=L))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert len(reads) > 16 * sms
+    want = realign.mxu_shared_kmer_mask_plain(reads, windows)
+    assert torch.equal(want, mxu_work(reads, windows)["verdict"])
+    assert 0 < int(want.sum()) < len(reads)
+    out = torch.empty(len(reads), dtype=torch.uint8, device=cuda)
+    for _ in range(5):
+        out.fill_(2)
+        kernels.launch_mxu_kmer_screen(reads, windows, out)
+        assert torch.equal(out, want.to(torch.uint8))
 
 
 @pytest.mark.cuda
