@@ -5,24 +5,33 @@ shape and contiguity (tensor metadata, so it never waits for the card),
 launches on PyTorch's current stream into an output the caller allocated,
 and raises if the launch returned a CUDA error. It adds one to
 ``launch_counts[name]`` where it launches, and nowhere else, so a run can
-show that its main path went through the kernel. The value ranges of the
-row lengths and of K1's min_score are checked on the host where the
-callers build them; the kernels clamp those lengths to their rows, so no
-value can make them read outside their inputs. What a kernel cannot carry
-exactly is refused before launch: K3's scores past 16 bits by shape and
-parameters (``sw_guard``), and K3's bytes above code 4 by
-``smith_waterman``, which reads the inputs' largest byte from the card
-(``sw_codes_guard``) before it launches. ``accept_wavefront``,
-``low_entropy``, ``smith_waterman`` and ``mxu_kmer_screen`` allocate the
-output and return bool verdicts (int32 scores for ``smith_waterman``). The
-plain PyTorch versions (the CPU path and the reference the kernels are held
-against) live beside their callers in ``ops/``.
+show that its main path went through the kernel; a kernel with a second
+variant counts it under its own name (``smith_waterman_wide``,
+``mxu_kmer_screen_any_k``). The value ranges of the row lengths are checked
+on the host where the callers build them; the kernels clamp those lengths
+to their rows, so no value can make them read outside their inputs.
+
+The card answers every input the JAX ops answer. Where one kernel cannot
+carry an input exactly, the wrapper routes it to another hand kernel
+before launch, from shapes, parameters and the byte range: K3's 16-bit
+pairs take what passes ``sw_guard`` and ``sw_codes_guard``, and K3w
+(32-bit lanes, any L, any byte) the rest (``sw_route``); K4 takes k = 8
+and its any-k kernel every other k; K1 decides per row, inside the
+kernel, between its seed lookup and a walk of every diagonal. What is
+still refused is what would wrap the JAX op's own int32 arithmetic
+(``sw_wide_guard``) or what the JAX op itself fails on (k < 1).
+``accept_wavefront``, ``low_entropy``, ``smith_waterman`` and
+``mxu_kmer_screen`` allocate the output and return bool verdicts (int32
+scores for ``smith_waterman``). The plain PyTorch versions (the CPU path
+and the reference the kernels are held against) live beside their callers
+in ``ops/``.
 """
 
 from __future__ import annotations
 
 launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
-                 "smith_waterman": 0, "mxu_kmer_screen": 0}
+                 "smith_waterman": 0, "smith_waterman_wide": 0,
+                 "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0}
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +50,7 @@ def _require(tensor, name: str, dtype, ndim: int) -> None:
 
 
 def _launch(name: str, *args) -> None:
+    """Launch the C entry point ``name`` (kernels.build) and count it."""
     import torch
 
     from .build import load
@@ -58,10 +68,10 @@ def launch_accept_wavefront(reads, windows, params, out) -> None:
     entry becomes non-zero when it accepts. reads uint8 [N, L] (pad byte
     0), windows uint8 [N, W] (pad byte 1), params int32 [N, 5] =
     (read_len, win_len, min_score, seed_lo, seed_hi) with
-    0 <= read_len <= L, win_len <= W and min_score > read_len - 2^20. K1
-    walks only the diagonals a seed names; without a fired seed a walk
-    scores at most read_len - 2^20, so that min_score is out of its
-    reach."""
+    0 <= read_len <= L and win_len <= W; any min_score and any N. A row
+    with min_score > read_len - 2^20 walks only the diagonals a seed names
+    (without a fired seed a walk scores at most read_len - 2^20); any
+    other row walks every diagonal."""
     import torch
 
     _require(reads, "reads", torch.uint8, 2)
@@ -74,10 +84,22 @@ def launch_accept_wavefront(reads, windows, params, out) -> None:
             or out.shape[0] != n):
         raise ValueError("reads, windows, params and out must have the same "
                          "rows and params 5 columns")
-    if n > 65535:
-        raise ValueError("accept_wavefront takes at most 65535 rows a launch")
     _launch("accept_wavefront", reads.data_ptr(), windows.data_ptr(),
             params.data_ptr(), out.data_ptr(), n, L, W)
+
+
+# K1's "no active walk" score (csrc/accept_wavefront.cuh AW_NEG)
+AW_NEG = -(1 << 20)
+
+
+def accept_walks_all(params, L: int):
+    """bool [N]: the rows of K1's params (int32 [N, 5]) for reads L bytes
+    wide that walk every diagonal, as the kernel decides per row
+    (aw_walks_all): min_score <= read_len - 2^20, read_len clamped to [0,
+    L], within an unseeded walk's reach. The other rows take the seed
+    lookup."""
+    read_len = params[:, 0].long().clamp(0, L)
+    return params[:, 2].long() <= read_len + AW_NEG
 
 
 def accept_wavefront(reads, windows, params):
@@ -132,21 +154,30 @@ SW_MAX_L = 512
 SW_MAX_SCORE = (1 << 13) - 1
 
 
-def sw_guard(L: int, W: int, match: int, mismatch: int, gap: int) -> None:
-    """Raise ValueError unless K3 carries these shapes and scores exactly:
-    L <= 512, every h below 2^13, match - gap and mismatch - gap in a
-    signed byte, |gap| <= 2^14. Decided before launch, from shapes and
-    parameters alone."""
+def sw_refusal(L: int, W: int, match: int, mismatch: int, gap: int) -> str:
+    """'' when K3 carries these shapes and scores exactly (L <= 512, every
+    h below 2^13, match - gap and mismatch - gap in a signed byte, |gap| <=
+    2^14), else the reason it does not. From shapes and parameters
+    alone."""
     if L > SW_MAX_L:
-        raise ValueError(f"smith_waterman takes reads of at most {SW_MAX_L} "
-                         f"positions, got {L}")
+        return (f"smith_waterman takes reads of at most {SW_MAX_L} "
+                f"positions, got {L}")
     if max(match, mismatch, 0) * L + max(gap, 0) * (L + W) > SW_MAX_SCORE:
-        raise ValueError("scores could reach 2^13, which K3's 16-bit lanes "
-                         "do not carry")
+        return "scores could reach 2^13, which K3's 16-bit lanes do not carry"
     if not (-128 <= match - gap <= 127 and -128 <= mismatch - gap <= 127
             and abs(gap) <= 1 << 14):
-        raise ValueError("match - gap and mismatch - gap must lie in "
-                         "[-128, 127] and |gap| <= 2^14 for K3")
+        return ("match - gap and mismatch - gap must lie in [-128, 127] and "
+                "|gap| <= 2^14 for K3")
+    return ""
+
+
+def sw_guard(L: int, W: int, match: int, mismatch: int, gap: int) -> None:
+    """Raise ValueError unless K3 carries these shapes and scores exactly
+    (sw_refusal). Decided before launch, from shapes and parameters
+    alone."""
+    reason = sw_refusal(L, W, match, mismatch, gap)
+    if reason:
+        raise ValueError(reason)
 
 
 # PAD_CODE of ops/encode.py, K3's largest code
@@ -166,13 +197,51 @@ def sw_codes_guard(reads, windows) -> None:
                              f"{int(x.amax())}")
 
 
+# K3w's int32 lanes (csrc/smith_waterman_wide.cuh gives the proof)
+SW_WIDE_MAX = (1 << 31) - 1
+
+
+def sw_wide_guard(L: int, W: int, match: int, mismatch: int,
+                  gap: int) -> None:
+    """Raise ValueError unless every h and every sum of K3w stays inside
+    int32, where the JAX op's own int32 arithmetic is exact too:
+    max(match, mismatch, 0) * L + max(gap, 0) * (L + W) plus the largest
+    of match, mismatch, gap and 0 below 2^31, each parameter an int32."""
+    for name, value in (("match", match), ("mismatch", mismatch),
+                        ("gap", gap)):
+        if not -(1 << 31) <= value <= SW_WIDE_MAX:
+            raise ValueError(f"{name} = {value} is not an int32")
+    top = max(match, mismatch, 0)
+    bound = top * L + max(gap, 0) * (L + W) + max(top, gap)
+    if bound > SW_WIDE_MAX:
+        raise ValueError(f"scores could reach {bound}, past int32 (the JAX "
+                         f"op's int32 sums would wrap too)")
+
+
+def sw_route(reads, windows, match: int = 1, mismatch: int = -1,
+             gap: int = -1) -> str:
+    """The kernel smith_waterman launches for these inputs: "smith_waterman"
+    (K3) where sw_refusal finds nothing and every byte is a code
+    0-4, else "smith_waterman_wide" (K3w). Launches nothing; the bytes are
+    read (one reduction, which waits for the card) only when the shapes and
+    scores fit K3."""
+    L, W = reads.shape[1], windows.shape[1]
+    if sw_refusal(L, W, match, mismatch, gap):
+        return "smith_waterman_wide"
+    try:
+        sw_codes_guard(reads, windows)
+    except ValueError:
+        return "smith_waterman_wide"
+    return "smith_waterman"
+
+
 def launch_smith_waterman(reads, windows, out, match: int = 1,
                           mismatch: int = -1, gap: int = -1) -> None:
     """K3 (csrc/smith_waterman.cu) into out, int32 [N]: the best local
     alignment score of each (read, window) row. reads uint8 [N, L] and
     windows uint8 [N, W] must hold codes 0-4, both padded with PAD_CODE
     (4): this launch does not read the bytes, smith_waterman checks them
-    (sw_codes_guard). The shapes and scores pass sw_guard."""
+    (sw_route). The shapes and scores pass sw_guard."""
     import torch
 
     _require(reads, "reads", torch.uint8, 2)
@@ -187,26 +256,78 @@ def launch_smith_waterman(reads, windows, out, match: int = 1,
             out.data_ptr(), n, L, W, match, mismatch, gap)
 
 
-def smith_waterman(reads, windows, match: int = 1, mismatch: int = -1,
-                   gap: int = -1):
-    """K3: int32 [N] scores (see launch_smith_waterman). Raises
-    ValueError, before launch, for a byte above code 4 (sw_codes_guard)."""
+def sw_wide_carry(reads, windows):
+    """K3w's carry rows, int32 [N, W], where a read spans more than one
+    tile (L > 512); an empty tensor otherwise."""
     import torch
 
-    sw_codes_guard(reads, windows)
+    n, L = reads.shape
+    W = windows.shape[1] if L > SW_MAX_L else 0
+    return torch.empty((n, W), dtype=torch.int32, device=reads.device)
+
+
+def launch_smith_waterman_wide(reads, windows, out, carry, match: int = 1,
+                               mismatch: int = -1, gap: int = -1) -> None:
+    """K3w (csrc/smith_waterman_wide.cu) into out, int32 [N]: the best
+    local alignment score of each (read, window) row, in int32 lanes, for
+    any L and W and any bytes (PAD 4). carry is sw_wide_carry's scratch.
+    The shapes and scores pass sw_wide_guard."""
+    import torch
+
+    _require(reads, "reads", torch.uint8, 2)
+    _require(windows, "windows", torch.uint8, 2)
+    _require(out, "out", torch.int32, 1)
+    _require(carry, "carry", torch.int32, 2)
+    n, L = reads.shape
+    W = windows.shape[1]
+    if windows.shape[0] != n or out.shape[0] != n:
+        raise ValueError("reads, windows and out must have the same rows")
+    if L > SW_MAX_L and tuple(carry.shape) != (n, W):
+        raise ValueError("carry must be int32 [N, W] for reads past "
+                         f"{SW_MAX_L} positions")
+    sw_wide_guard(L, W, match, mismatch, gap)
+    _launch("smith_waterman_wide", reads.data_ptr(), windows.data_ptr(),
+            out.data_ptr(), carry.data_ptr(), n, L, W, match, mismatch, gap)
+
+
+def smith_waterman(reads, windows, match: int = 1, mismatch: int = -1,
+                   gap: int = -1):
+    """K3 or K3w, as sw_route decides before launch: int32 [N] scores (see
+    launch_smith_waterman, launch_smith_waterman_wide). Raises ValueError,
+    before launch, only past sw_wide_guard."""
+    import torch
+
+    route = sw_route(reads, windows, match, mismatch, gap)
     out = torch.empty(reads.shape[0], dtype=torch.int32, device=reads.device)
-    launch_smith_waterman(reads, windows, out, match, mismatch, gap)
+    if route == "smith_waterman":
+        launch_smith_waterman(reads, windows, out, match, mismatch, gap)
+    else:
+        launch_smith_waterman_wide(reads, windows, out,
+                                   sw_wide_carry(reads, windows), match,
+                                   mismatch, gap)
     return out
 
 
-def launch_mxu_kmer_screen(reads, windows, out) -> None:
+def mxu_route(k: int) -> str:
+    """The kernel mxu_kmer_screen launches for k-mers of length k:
+    "mxu_kmer_screen" (K4) for k = 8, "mxu_kmer_screen_any_k" (csrc/
+    mxu_kmer_screen.cuh, "K4 at any k") for any other k >= 1; ValueError
+    for k < 1, where the JAX op fails too (it stacks no positions)."""
+    if k < 1:
+        raise ValueError(f"k-mers of length {k}: K4 takes 1 <= k")
+    return "mxu_kmer_screen" if k == 8 else "mxu_kmer_screen_any_k"
+
+
+def launch_mxu_kmer_screen(reads, windows, out, k: int = 8) -> None:
     """K4 (csrc/mxu_kmer_screen.cu) into out, uint8 [N]: 1 where some
-    8-mer of the read occurs in the window, else 0. reads uint8 [N, L] and
+    k-mer of the read occurs in the window, else 0. reads uint8 [N, L] and
     windows uint8 [N, W] hold codes; a byte above 3 (PAD 4 or larger) one-
-    hots to zero, so no 8-mer that covers one matches. No launch for N = 0
-    (nothing to write)."""
+    hots to zero, so no k-mer that covers one matches. k = 8 launches K4,
+    any other k its any-k kernel (mxu_route). No launch for N = 0 (nothing
+    to write)."""
     import torch
 
+    route = mxu_route(k)
     _require(reads, "reads", torch.uint8, 2)
     _require(windows, "windows", torch.uint8, 2)
     _require(out, "out", torch.uint8, 1)
@@ -216,14 +337,19 @@ def launch_mxu_kmer_screen(reads, windows, out) -> None:
         raise ValueError("reads, windows and out must have the same rows")
     if n == 0:
         return
-    _launch("mxu_kmer_screen", reads.data_ptr(), windows.data_ptr(),
-            out.data_ptr(), n, L, W)
+    if route == "mxu_kmer_screen":
+        _launch(route, reads.data_ptr(), windows.data_ptr(), out.data_ptr(),
+                n, L, W)
+    else:
+        # a k past L leaves the read no k-mer, as L + 1 does (an int32)
+        _launch(route, reads.data_ptr(), windows.data_ptr(), out.data_ptr(),
+                n, L, W, min(k, L + 1))
 
 
-def mxu_kmer_screen(reads, windows):
-    """K4: bool [N] shared-8-mer verdicts (see launch_mxu_kmer_screen)."""
+def mxu_kmer_screen(reads, windows, k: int = 8):
+    """K4: bool [N] shared-k-mer verdicts (see launch_mxu_kmer_screen)."""
     import torch
 
     out = torch.empty(reads.shape[0], dtype=torch.uint8, device=reads.device)
-    launch_mxu_kmer_screen(reads, windows, out)
+    launch_mxu_kmer_screen(reads, windows, out, k)
     return out.view(torch.bool)

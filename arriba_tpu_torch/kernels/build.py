@@ -22,11 +22,13 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman",
-           "mxu_kmer_screen")
+           "smith_waterman_wide", "mxu_kmer_screen")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C entry points: name -> (argument types); each returns a cudaError_t
+# C entry points: name -> (symbol, argument types); each returns a
+# cudaError_t. An entry point lives in lib<name>.so unless _LIBRARIES names
+# another library.
 _SIGNATURES = {
     "accept_wavefront": ("arriba_accept_wavefront",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
@@ -37,10 +39,17 @@ _SIGNATURES = {
     "smith_waterman": ("arriba_smith_waterman",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p]),
+    "smith_waterman_wide": ("arriba_smith_waterman_wide",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                            + [ctypes.c_void_p]),
     "mxu_kmer_screen": ("arriba_mxu_kmer_screen",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p]),
+    "mxu_kmer_screen_any_k": ("arriba_mxu_kmer_screen_any_k",
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p]),
 }
+_LIBRARIES = {"mxu_kmer_screen_any_k": "mxu_kmer_screen"}
 
 _loaded: dict = {}
 
@@ -114,9 +123,10 @@ def load(name: str):
     use: launch returns a cudaError_t code, error_string names it."""
     entry = _loaded.get(name)
     if entry is None:
-        if _stale(name):
-            build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+        library = _LIBRARIES.get(name, name)
+        if _stale(library):
+            build((library,))
+        lib = ctypes.CDLL(str(library_path(library)))
         symbol, argtypes = _SIGNATURES[name]
         launch = getattr(lib, symbol)
         launch.argtypes = argtypes

@@ -37,6 +37,12 @@
 // an int32 [N] output that the caller zeroes; a block whose row another
 // block has already accepted skips its work. The result is exact whatever
 // order the blocks run in.
+// A row whose min_score is within an unseeded walk's reach (min_score <=
+// read_len - 2^20; accept_wavefront.cuh, aw_walks_all) skips steps 1-3 and
+// walks every diagonal of its strip that holds a valid cell (walk_all),
+// with the plain version's arithmetic; the choice is per row, from params.
+// Rows sit on gridDim.y and gridDim.z (65,535 each), so any row count
+// launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,12 +53,43 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kParams = 5;  // read_len, win_len, min_score, seed_lo, seed_hi
 
+// A row whose min_score an unseeded walk can reach (aw_walks_all): every
+// diagonal of the strip with a valid cell is walked, one a thread, the
+// read staged in shared memory; the block stops taking walks once one of
+// them, or another block of the row, has accepted.
+__device__ __noinline__ void walk_all(const uint8_t* read,
+                                      const uint8_t* window,
+                                      const int32_t* p, int32_t* out,
+                                      int read_len, int win_len, int d_lo,
+                                      int d_hi, uint8_t* read_s) {
+    __shared__ int done;
+    const int tid = threadIdx.x;
+    int first, last;
+    arriba::aw_all_span(d_lo, d_hi, read_len, win_len, &first, &last);
+    if (first > last) return;  // no valid cell in the strip (uniform)
+    for (int t = tid; t < read_len; t += kBlock) read_s[t] = read[t];
+    if (tid == 0) done = *(volatile const int32_t*)out != 0;
+    __syncthreads();
+    volatile int* row_done = &done;
+    bool accept = false;
+    for (int delta = first + tid; delta <= last && !*row_done;
+         delta += kBlock) {
+        if (arriba::aw_diagonal(read_s, window, delta, read_len, win_len,
+                                p[2], p[3], p[4])) {
+            accept = true;
+            *row_done = 1;
+        }
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, accept);
+    if ((tid & 31) == 0 && ballot != 0) atomicOr(out, 1);
+}
+
 __global__ void __launch_bounds__(kBlock)
 accept_seeded_kernel(const uint8_t* __restrict__ reads,
                      const uint8_t* __restrict__ windows,
                      const int32_t* __restrict__ params,
-                     int32_t* __restrict__ out, int L, int W, int strip,
-                     int vector_loads) {
+                     int32_t* __restrict__ out, int n_rows, int L, int W,
+                     int strip, int vector_loads) {
     extern __shared__ __align__(16) uint8_t smem[];
     __shared__ int n_queue;
     __shared__ int done;
@@ -64,20 +101,27 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
     uint8_t* read_s = smem + lay.read;
     uint8_t* codes = smem + lay.codes;
 
-    const int row = blockIdx.y;
+    // rows on y and z: any row count launches (65,535 x 65,535 > 2^31)
+    const long long row_yz = blockIdx.y + (long long)gridDim.y * blockIdx.z;
+    if (row_yz >= n_rows) return;
+    const int row = (int)row_yz;
     const int tid = threadIdx.x;
     const int32_t* p = params + (size_t)row * kParams;
-    // the caller checks 0 <= read_len <= L, win_len <= W and that min_score
-    // is out of an unseeded walk's reach on the host; the clamps keep every
-    // access inside the row whatever params hold
+    // the caller checks 0 <= read_len <= L and win_len <= W on the host;
+    // the clamps keep every access inside the row whatever params hold
     const int read_len = min(max(p[0], 0), L);
     const int win_len = min(p[1], W);
     const int min_score = p[2];
+    const int d_lo = -(L - 1) + (int)blockIdx.x * strip;
+    const int d_hi = min(d_lo + strip, W) - 1;
+    if (arriba::aw_walks_all(read_len, min_score)) {
+        walk_all(reads + (size_t)row * L, windows + (size_t)row * W, p,
+                 out + row, read_len, win_len, d_lo, d_hi, read_s);
+        return;
+    }
     const int n_seeds = arriba::aw_seed_starts(read_len, min_score);
     int lo, hi;
     arriba::aw_window_span(win_len, p[3], p[4], &lo, &hi);
-    const int d_lo = -(L - 1) + (int)blockIdx.x * strip;
-    const int d_hi = min(d_lo + strip, W) - 1;
     int jb, je;
     arriba::aw_scan_span(d_lo, d_hi, n_seeds, lo, hi, &jb, &je);
     if (jb > je) return;  // no seed of this row names a diagonal of the strip
@@ -167,8 +211,9 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
 extern "C" {
 
 // reads uint8 [n, L], windows uint8 [n, W], params int32 [n, 5], out int32
-// [n] zeroed by the caller; per row 0 <= read_len <= L, win_len <= W and
-// min_score > read_len + AW_NEG (accept_wavefront.cuh, "Seed lookup").
+// [n] zeroed by the caller; per row 0 <= read_len <= L and win_len <= W.
+// Rows with min_score > read_len + AW_NEG take the seed lookup, the others
+// walk every diagonal (accept_wavefront.cuh).
 int arriba_accept_wavefront(const void* reads, const void* windows,
                             const void* params, void* out, int n, int L,
                             int W, void* stream) {
@@ -183,10 +228,11 @@ int arriba_accept_wavefront(const void* reads, const void* windows,
             smem);
         if (code != cudaSuccess) return (int)code;
     }
-    accept_seeded_kernel<<<dim3(n_strips, n), kBlock, smem,
-                           (cudaStream_t)stream>>>(
+    const int rows_y = n < 65535 ? n : 65535;
+    accept_seeded_kernel<<<dim3(n_strips, rows_y, (n + rows_y - 1) / rows_y),
+                           kBlock, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)reads, (const uint8_t*)windows,
-        (const int32_t*)params, (int32_t*)out, L, W, strip, vector_loads);
+        (const int32_t*)params, (int32_t*)out, n, L, W, strip, vector_loads);
     return (int)cudaGetLastError();
 }
 

@@ -226,6 +226,28 @@ __host__ __device__ inline void aw_seed_span(int j, int d_lo, int d_hi,
     *s_hi = j - d_lo < n_seeds - 1 ? j - d_lo : n_seeds - 1;
 }
 
+// ---------------------------------------------------------------------------
+// Rows whose min_score the seed lookup cannot serve.
+//
+// Where min_score <= read_len + AW_NEG an unseeded walk may accept (its
+// score climbs from AW_NEG by 1 a matching cell), so a diagonal can accept
+// that no seed names. Such a row walks every diagonal that holds a valid
+// cell, each with aw_diagonal, which is then exactly the plain version's
+// answer. The choice is per row, from its params alone.
+
+__host__ __device__ inline bool aw_walks_all(int read_len, int min_score) {
+    return (long long)min_score <= (long long)read_len + AW_NEG;
+}
+
+// The diagonals of [d_lo, d_hi] that hold a valid cell of a row: delta in
+// [-(read_len - 1), win_len - 1]; empty (*first > *last) when none
+__host__ __device__ inline void aw_all_span(int d_lo, int d_hi, int read_len,
+                                            int win_len, int* first,
+                                            int* last) {
+    *first = d_lo > 1 - read_len ? d_lo : 1 - read_len;
+    *last = d_hi < win_len - 1 ? d_hi : win_len - 1;
+}
+
 // Shared-memory layout of one block (byte offsets, 16-aligned pieces):
 // the 8-mer bitmap, the claimed-diagonal bitset, the walk queue (diagonal
 // offsets into the strip), the read's seed 8-mers, the read bytes and the

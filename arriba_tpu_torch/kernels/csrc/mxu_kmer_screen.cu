@@ -1,5 +1,7 @@
 // K4: the one-hot 8-mer screen on the int8 tensor cores (wgmma), for
-// sm_90a.
+// sm_90a. A second kernel below, mxu_kmer_screen_any_kernel, takes every
+// other k the JAX op takes (arriba_mxu_kmer_screen_any_k); what follows up
+// to it is about k = 8.
 //
 // Replaces: arriba_tpu/ops/realign.py:79 mxu_shared_kmer_mask, a jax.jit
 // op (no Pallas kernel): does any 8-mer of read n occur in window n, as a
@@ -331,6 +333,108 @@ mxu_kmer_screen_kernel(const uint8_t* __restrict__ reads,
     }
 }
 
+// K4 at any k other than 8 (mxu_kmer_screen.cuh, "K4 at any k"): a block is
+// one warpgroup and walks rows by a fixed stride; a row is its slabs of
+// MK_N read k-mers, each against the window's groups of plan.groups tiles
+// of 64 window k-mers. At a slab's first group the block writes the
+// slab's B images (scaled 1 and 64) for the k-steps they hold
+// (plan.kchunk; when a k-mer has more k-steps than that, every group
+// writes them again, chunk by chunk), straight from the read's bytes in
+// device memory. A group starts its accumulator at plan.bias and, for each
+// k-step, builds its tiles' scaled A from the window's bytes and chains
+// their wgmmas into it; then every thread tests its 80 sums (mk_any_hit:
+// their OR against plan.mask, or with one tile a group their largest
+// against k) and the block votes. A hit ends the row. No copy ring: the
+// bytes come through the caches, which is enough for the rows this kernel
+// serves.
+__global__ void __launch_bounds__(kThreads)
+mxu_kmer_screen_any_kernel(const uint8_t* __restrict__ reads,
+                           const uint8_t* __restrict__ windows,
+                           uint8_t* __restrict__ out, int n, int L, int W,
+                           arriba::MkPlan plan) {
+    extern __shared__ __align__(16) uint8_t images[];  // 16: no swizzle
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp_row = 16 * (tid >> 5);
+    const int k = plan.k;
+    const int slabs = (arriba::mk_any_kmers(L, k) + arriba::MK_N - 1)
+                      / arriba::MK_N;
+    const int tiles = (arriba::mk_any_kmers(W, k) + arriba::MK_TILE_M - 1)
+                      / arriba::MK_TILE_M;
+    const int groups = (tiles + plan.groups - 1) / plan.groups;
+    const int span = plan.groups * arriba::MK_TILE_M;
+
+    for (int row = blockIdx.x; row < n; row += gridDim.x) {
+        const uint8_t* read = reads + (size_t)row * L;
+        const uint8_t* window = windows + (size_t)row * W;
+        bool hit = false;
+        for (int slab = 0; slab < slabs && !hit; ++slab) {
+            const int n0 = slab * arriba::MK_N;
+            for (int g = 0; g < groups && !hit; ++g) {
+                int32_t d[kAcc];
+#pragma unroll
+                for (int i = 0; i < kAcc; ++i) d[i] = plan.bias;
+                for (int c0 = 0; c0 < plan.ksteps; c0 += plan.kchunk) {
+                    const int c_n = min(plan.kchunk, plan.ksteps - c0);
+                    if (g == 0 || plan.kchunk < plan.ksteps) {
+                        // every thread's products on the images are done
+                        __syncthreads();
+                        for (int s = 0; s < c_n; ++s) {
+                            for (int w = tid; w < arriba::MK_IMAGE / 4;
+                                 w += kThreads) {
+                                const uint32_t word = arriba::mk_any_b_word(
+                                    read, L, n0, k, c0 + s, w);
+                                for (int i = 0; i < plan.images; ++i) {
+                                    reinterpret_cast<uint32_t*>(
+                                        images + (size_t)(i * plan.kchunk + s)
+                                                     * arriba::MK_IMAGE)[w] =
+                                        word << arriba::mk_any_b_shift(i);
+                                }
+                            }
+                        }
+                        fence_proxy_async();
+                        __syncthreads();
+                    }
+                    for (int s = 0; s < c_n; ++s) {
+                        uint32_t a[arriba::MK_GROUP][4];
+#pragma unroll
+                        for (int j = 0; j < arriba::MK_GROUP; ++j) {
+                            if (j < plan.groups) {
+                                arriba::mk_any_a_fragment(
+                                    window, W, g * span + j * arriba::MK_TILE_M
+                                                   + warp_row,
+                                    k, c0 + s, lane, a[j],
+                                    arriba::mk_any_a_shift(plan, j));
+                            }
+                        }
+                        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+                        pin(d);
+#pragma unroll
+                        for (int j = 0; j < arriba::MK_GROUP; ++j) {
+                            if (j < plan.groups) {
+                                const int image =
+                                    arriba::mk_any_image(plan, j);
+                                wgmma_tile(d, a[j], arriba::mk_desc(
+                                    smem(images + (size_t)(image * plan.kchunk
+                                                           + s)
+                                                      * arriba::MK_IMAGE),
+                                    arriba::MK_LBO, arriba::MK_SBO), 1);
+                            }
+                        }
+                        asm volatile("wgmma.commit_group.sync.aligned;"
+                                     ::: "memory");
+                        asm volatile("wgmma.wait_group.sync.aligned 0;"
+                                     ::: "memory");
+                        pin(d);
+                    }
+                }
+                hit = __syncthreads_or(arriba::mk_any_hit<kAcc>(plan, d));
+            }
+        }
+        if (tid == 0) out[row] = hit ? 1 : 0;
+    }
+}
+
 // blocks that fit on the card at once, for the device in use (asked once a
 // device)
 int grid_limit(int* blocks) {
@@ -375,6 +479,42 @@ int arriba_mxu_kmer_screen(const void* reads, const void* windows, void* out,
 }
 
 const char* arriba_mxu_kmer_screen_error(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+// the same at any k >= 1 (mxu_kmer_screen_any_kernel; the caller sends
+// k = 8 to arriba_mxu_kmer_screen): out uint8 [n], 1 where read and window
+// share a k-mer over codes 0-3
+int arriba_mxu_kmer_screen_any_k(const void* reads, const void* windows,
+                                 void* out, int n, int L, int W, int k,
+                                 void* stream) {
+    if (n == 0) return 0;
+    if (k < 1) return (int)cudaErrorInvalidValue;
+    const arriba::MkPlan plan = arriba::mk_plan(k);
+    const int smem_bytes = plan.images * plan.kchunk * arriba::MK_IMAGE;
+    cudaError_t err = cudaFuncSetAttribute(
+        mxu_kmer_screen_any_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    int device, sms, per_sm;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+    }
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, mxu_kmer_screen_any_kernel, kThreads, smem_bytes);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+    mxu_kmer_screen_any_kernel<<<n < blocks ? n : blocks, kThreads,
+                                 smem_bytes, (cudaStream_t)stream>>>(
+        (const uint8_t*)reads, (const uint8_t*)windows, (uint8_t*)out, n, L,
+        W, plan);
+    return (int)cudaGetLastError();
+}
+
+const char* arriba_mxu_kmer_screen_any_k_error(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 

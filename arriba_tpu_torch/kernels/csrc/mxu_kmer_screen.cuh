@@ -235,4 +235,123 @@ __host__ __device__ inline uint32_t mk_span(uint64_t a, int n, int* shift) {
     return (uint32_t)((*shift + n + 15) & ~15);
 }
 
+// ---------------------------------------------------------------------------
+// K4 at any k (mxu_kmer_screen.cu's second kernel; k = 8 keeps the kernel
+// above).
+//
+// A k-mer is 4k one-hot lanes, padded with zero lanes to MK_KSTEPS = 32
+// lanes a k-step: k-step s holds bases 8 s .. 8 s + 7 (a base past k is a
+// zero lane, so the padding adds nothing to a dot). One wgmma m64n160k32 a
+// k-step, chained into one accumulator, gives the full dot, in [0, k], k
+// exactly when the k-mers are equal over codes 0-3.
+//
+// The hit test stays one OR fold and one AND, for any k. Let m be the
+// least integer >= 3 with 2^m >= k, D = m + 1 digit bits, and b = 2^m - k.
+// The accumulator starts at sum_j b 2^(D j) (wgmma then adds to it), and
+// tile j of a group of G tiles is weighted 2^(D j), so digit j of a sum is
+// dot_j + b, which lies in [b, 2^m] and below 2^D (no carry into the next
+// digit): bit m of digit j is set exactly when dot_j + b = 2^m, that is
+// dot_j = k. An OR of sums keeps each such bit, so (OR & mask), mask =
+// sum_j 2^(m + D j), is non-zero iff some dot of some tile is k. With k = 8
+// this is K4's own test (b = 0, D = 4, mask 0x8888).
+// The weights are products of an A scale 2^a(j) and a B scale 2^b(j), both
+// <= 64 so that a scaled one-hot byte stays an s8: b(j) = 6 where D j > 6,
+// else 0, and a(j) = D j - b(j), so G tiles need D (G - 1) <= 12: G = 4 for
+// k <= 8 (D = 4), 3 for k <= 32 (D = 5, 6), 2 for k <= 2,048 (D <= 12). A
+// sum is then at most 2^(D G) <= 2^24, a positive int32. Beyond k = 2,048 a
+// group is one tile and needs no digits: the accumulator starts at 0, each
+// sum is a dot, at most k < 2^31, and the test is the largest sum against
+// k (mk_any_hit). Two B images (scaled 1 and 64) serve every group, one
+// where G = 1.
+
+constexpr int MK_KSTEP_BASES = 8;       // bases a k-step (32 lanes)
+constexpr int MK_ANY_IMAGE_BUDGET = 98304;  // bytes of B images a block
+
+struct MkPlan {
+    int k;          // k-mer length
+    int ksteps;     // 32-lane k-steps a k-mer: ceil(k / 8)
+    int digit;      // D, bits a tile's digit
+    int groups;     // G, tiles an accumulation
+    int images;     // B images (scaled 1 and 64; one when G = 1)
+    int kchunk;     // k-steps the block's images hold at once
+    int32_t bias;   // the accumulator's start: b in every digit (G > 1)
+    uint32_t mask;  // bit m of every digit (G > 1)
+};
+
+__host__ __device__ inline MkPlan mk_plan(int k) {
+    MkPlan p;
+    p.k = k;
+    p.ksteps = k / MK_KSTEP_BASES + (k % MK_KSTEP_BASES != 0);
+    int m = 3;
+    while ((1LL << m) < k) ++m;
+    p.digit = m + 1;
+    p.groups = p.digit > 12 ? 1 : 12 / p.digit + 1 < MK_GROUP
+                                  ? 12 / p.digit + 1 : MK_GROUP;
+    p.images = p.groups > 1 ? 2 : 1;
+    const int fit = MK_ANY_IMAGE_BUDGET / (p.images * MK_IMAGE);
+    p.kchunk = p.ksteps < fit ? p.ksteps : fit;
+    p.bias = 0;
+    p.mask = 0;
+    for (int j = 0; p.groups > 1 && j < p.groups; ++j) {
+        p.bias += (int32_t)(((1LL << m) - k) << (p.digit * j));
+        p.mask |= 1u << (m + p.digit * j);
+    }
+    return p;
+}
+
+// Does one of a thread's n sums d show a dot of k? With G > 1 tiles a
+// group, the OR of the sums against plan.mask; with one, the largest sum
+// against k
+template <int N>
+__host__ __device__ inline bool mk_any_hit(const MkPlan& p,
+                                           const int32_t* d) {
+    if (p.groups > 1) return (mk_fold<N>(0u, d) & p.mask) != 0;
+    int32_t top = d[0];
+    for (int i = 1; i < N; ++i) top = d[i] > top ? d[i] : top;
+    return top >= p.k;
+}
+
+// tile j's A shift and B image (0: scale 1, 1: scale 64)
+__host__ __device__ inline int mk_any_image(const MkPlan& p, int j) {
+    return p.digit * j > 6 ? 1 : 0;
+}
+__host__ __device__ inline int mk_any_a_shift(const MkPlan& p, int j) {
+    return p.digit * j - 6 * mk_any_image(p, j);
+}
+__host__ __device__ inline int mk_any_b_shift(int image) {
+    return image == 0 ? 0 : 6;
+}
+
+// word w (MK_IMAGE / 4 a k-step) of the B image of k-step s for the read
+// k-mers of a slab starting at read position n0: the one-hot word of base
+// 8 s + mk_b_word_base(w) of k-mer n0 + mk_b_word_kmer(w); 0 for a base
+// past k or a byte past the read's L
+__host__ __device__ inline uint32_t mk_any_b_word(const uint8_t* read, int L,
+                                                  int n0, int k, int s,
+                                                  int w) {
+    const int base = MK_KSTEP_BASES * s + mk_b_word_base(w);
+    return base < k ? mk_word(read, L, n0 + mk_b_word_kmer(w) + base) : 0u;
+}
+
+// lane's A fragment of k-step s for the 16 window k-mers from q0 (the
+// warp's first row): register r holds base 8 s + column / 4 of the k-mer
+// at row q0 + mk_a_row(lane, r), 0 past k or past the window's W bytes,
+// scaled by 2^shift
+__host__ __device__ inline void mk_any_a_fragment(const uint8_t* window,
+                                                  int W, int q0, int k,
+                                                  int s, int lane,
+                                                  uint32_t a[4], int shift) {
+    for (int r = 0; r < 4; ++r) {
+        const int base = MK_KSTEP_BASES * s + mk_a_col(lane, r, 0) / 4;
+        a[r] = base < k ? mk_word(window, W, q0 + mk_a_row(lane, r) + base)
+                              << shift
+                        : 0u;
+    }
+}
+
+// read k-mers (R = L - k + 1) and window k-mers, 0 when a side has none
+__host__ __device__ inline int mk_any_kmers(int L, int k) {
+    return L >= k ? L - k + 1 : 0;
+}
+
 }  // namespace arriba

@@ -15,8 +15,9 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
    break, the outer-loop seed bound and the k-mer-index range) evaluated
    per (read, window) row. CUDA tensors run the hand-written kernel K1
    (kernels/csrc/accept_wavefront.cu, which looks the read's eligible
-   8-mers up in the window and walks only the diagonals they name); CPU
-   tensors run
+   8-mers up in the window and walks only the diagonals they name, or
+   every diagonal of a row whose min_score an unseeded walk can reach);
+   CPU tensors run
    `accept_wavefront_plain`, a step-for-step twin of the JAX package's
    wavefront. A device ACCEPT is sound (align() necessarily accepts);
    splice/deletion recursion chains stay host-only, so a device reject
@@ -28,7 +29,9 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
 3. `realign_step`, the data-parallel path's fused prefilter and scoring
    step: the 8-mer screen plus `smith_waterman_scores`, the best local
    alignment score per row. CUDA tensors run the hand-written kernel K3
-   (kernels/csrc/smith_waterman.cu); CPU tensors run
+   (kernels/csrc/smith_waterman.cu), or K3w (smith_waterman_wide.cu) for
+   reads past 512 positions, scores past 16 bits or bytes above 4; CPU
+   tensors run
    `smith_waterman_scores_plain`, the twin of the JAX package's wavefront.
 """
 
@@ -112,16 +115,14 @@ def mxu_shared_kmer_mask(reads: torch.Tensor, windows: torch.Tensor,
     """bool [N]: does any k-mer of read n occur in window n, as the one-hot
     product decides it (mxu_shared_kmer_mask_plain)? CUDA tensors run the
     hand-written kernel K4 (kernels/csrc/mxu_kmer_screen.cu, int8 tensor
-    cores; k = 8 only, and w_chunk, a tiling of the plain version, does not
-    change the verdict); CPU tensors the plain version. No CLI path calls
-    it, as in the JAX package (whose bench does)."""
+    cores: its k = 8 kernel, or its any-k kernel for any other k from 1 on;
+    w_chunk, a tiling of the plain version, does not change the verdict);
+    CPU tensors the plain version. No CLI path calls it, as in the JAX
+    package (whose bench does)."""
     if reads.is_cuda:
-        if k != SEED_KMER_LENGTH:
-            raise ValueError(f"K4 screens {SEED_KMER_LENGTH}-mers, not "
-                             f"{k}-mers")
         from .. import kernels
         return kernels.mxu_kmer_screen(reads.contiguous(),
-                                       windows.contiguous())
+                                       windows.contiguous(), k)
     return mxu_shared_kmer_mask_plain(reads, windows, k, w_chunk)
 
 
@@ -164,9 +165,10 @@ def smith_waterman_scores_plain(reads, windows, match: int = 1,
 
 def smith_waterman_scores(reads, windows, match: int = 1, mismatch: int = -1,
                           gap: int = -1) -> torch.Tensor:
-    """int32 [N] best local alignment scores: K3 for CUDA tensors, the
-    plain version for CPU tensors. reads and windows hold codes 0-4 (PAD
-    4), as ops/encode.py builds them; K3 refuses a larger byte."""
+    """int32 [N] best local alignment scores: for CUDA tensors K3, or K3w
+    where K3 cannot carry the shapes, scores or bytes (kernels.sw_route);
+    the plain version for CPU tensors. PAD is byte 4; any other byte is
+    compared whole, as the JAX op does."""
     if reads.is_cuda:
         from .. import kernels
         return kernels.smith_waterman(reads.contiguous(),
@@ -443,13 +445,6 @@ def accept_pairs(read_seqs, window_views, min_scores,
     from ..seq import reverse_complement_str
 
     max_read = max(len(seq) for seq in read_seqs)
-    if (torch.device(device).type == "cuda"
-            and min(min_scores) <= _NEG + max_read):
-        # K1 walks only the diagonals a seed names; without a fired seed a
-        # walk scores at most _NEG + read_len, so a min_score that low could
-        # accept on a diagonal K1 never walks
-        raise ValueError(f"accept_pairs takes min_scores > {_NEG} + the "
-                         f"read length on a CUDA device")
     L = -(-max(16, max_read) // 64) * 64
     stride = window_chunk - 2 * L
     assert stride > 0
@@ -486,9 +481,8 @@ def accept_pairs(read_seqs, window_views, min_scores,
         pairs = np.fromiter((row[0] for row in batch), np.int64, len(batch))
         reads = [row[1] for row in batch]
         windows = [row[2] for row in batch]
-        # read_len <= L and win_len <= window_chunk by construction, and
-        # min_score checked above: what K1 requires of a row holds without a
-        # check on the card
+        # read_len <= L and win_len <= window_chunk by construction: what K1
+        # requires of a row holds without a check on the card
         params = np.zeros((len(batch), 5), np.int32)
         params[:, 2] = 2 ** 20   # padded rows: unreachable min_score
         params[:len(batch)] = [row[3] for row in batch]

@@ -7,8 +7,9 @@
     python3 chip_smoke.py --k4-occupancy
 
 The second form only times one kernel (accept_wavefront, low_entropy,
-smith_waterman or mxu_kmer_screen) built from other sources against this
-checkout's build (compare; K4's builds also go through its stress step);
+smith_waterman or mxu_kmer_screen at k = 8) built from other sources
+against this checkout's build (compare; K4's builds also go through its
+stress step);
 a SOURCE is a csrc directory, such as an earlier commit's unpacked with
 ``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
@@ -36,7 +37,14 @@ printed):
    than K4 has blocks (MXU_CASES), then K4's stress step: 200 launches on
    the first 64 bench rows and 200 on all 512, 50 on 4,096 mixed rows at
    one and at two slabs of read k-mers, every verdict checked
-   (mxu_stress).
+   (mxu_stress). Then what the wrappers route to a second kernel, or what
+   K1 used to refuse: K3w on SWW_CASES (the realign step's 600 bp shape,
+   65,536 x 640 x 256; 16,384 x 1,024 x 2,048; bytes 5-255; the scores
+   (2, -3, -5) past 2^13; match - gap outside a signed byte); K4's any-k
+   kernel at k = 1, 4, 12, 16 and 31 (MXU_ANY_K) on the bench rows and on
+   case (d); K1 on 512 x 192 x 2,048 rows of which half walk every
+   diagonal (min_score -2^20 + 1 or read_len - 2^20) and on 70,000 rows of
+   64 x 64 in one launch.
    Kernel time
    is the median of 20 CUDA-event timed windows after a warm-up, inputs
    checked and output allocated ahead: single launches for K1, whose output
@@ -68,11 +76,16 @@ printed):
    pipeline state at 1 and 4 row shards on the card (the filter step over
    every tensorized mate, the realignment step with K3, the cluster step
    over the whole fusion table, the stats step), equal between the two and
-   with the host fusion table; K3 must have launched in this phase.
+   with the host fusion table; K3 must have launched in this phase. Then
+   the realign step on random_read_batch(rng, 4096, 600), 640 wide, at 1
+   and 4 shards, equal to its plain arithmetic (realign_600bp): K3w must
+   have launched there.
 6. K4's caller: realign.mxu_shared_kmer_mask on the bench rows, as the JAX
    package's bench calls its twin, equal to the sorted screen, and the
    bench's other number: the port's sorted screen (shared_kmer_mask, plain
-   torch) timed on the same rows (mxu_path).
+   torch) timed on the same rows (mxu_path); the same op at each k of
+   MXU_ANY_K (mxu_any_k_path), and K1's op on 70,000 rows a quarter of
+   which walk every diagonal (accept_path).
 7. The cohort runner: python -m arriba_tpu_torch.parallel.cohort on the
    genome-scale sample listed three times, three workers on the one card
    under run C's environment with jax blocked; each worker's outputs equal
@@ -162,6 +175,15 @@ SW_OPS = {"match test and select (prmt)": (1, INT_PER_CLOCK),
           "max of up and left (max.s16x2)": (1, 2 * INT_PER_CLOCK),
           "add, max and floor at 0 (viaddmax_s16x2_relu)": (1, INT_PER_CLOCK),
           "running best (max.s16x2)": (1, 2 * INT_PER_CLOCK)}
+# K3w, one valid (read, window) cell in 32-bit lanes (a read and a window
+# byte both not PAD; csrc/smith_waterman_wide.cu): the byte compare and the
+# select of match or mismatch, the max of up and left, + gap, the add, max
+# and floor at 0 (one DPX instruction), the PAD select, the running best
+SWW_OPS = {"byte compare": 1, "select match or mismatch": 1,
+           "max of up and left": 1, "+ gap": 1,
+           "add, max and floor at 0 (viaddmax_s32_relu)": 1,
+           "PAD select": 1, "running best": 1}
+SWW_OPS_PER_CELL = sum(SWW_OPS.values())        # 7
 AW_OPS_PER_POSITION = sum(AW_SCAN_OPS.values())  # 14
 AW_OPS_PER_CELL = sum(AW_OPS.values())          # 36
 LE_OPS_PER_POSITION = sum(LE_OPS.values())      # 8
@@ -349,18 +371,23 @@ def accept_adversarial_inputs(seed: int = 29, N: int = 56, L: int = 192,
     return reads, windows, params
 
 
-def accept_work(reads, windows, params) -> dict:
-    """The work K1's seed lookup needs on these inputs, counted with plain
-    torch ops on their device: the window positions in the eligible range
-    of the rows that have an eligible read start, the candidate diagonals
-    (an eligible window 8-mer equal to the 8-mer of an eligible read start
-    names j - s), and the cells walked on them, from each diagonal's first
-    valid cell to its first accepting cell or its end. The walks repeat
-    aw_step of kernels/csrc/accept_wavefront.cuh over all candidates at
-    once (a change to aw_step must be made here too), so the rows with an
-    accepting candidate come out too, for a check against the plain
-    version."""
+def accept_work(reads, windows, params, verdicts=None) -> dict:
+    """The work K1 needs on these inputs, counted with plain torch ops on
+    their device. Rows that take the seed lookup: the window positions in
+    the eligible range of the rows that have an eligible read start, the
+    candidate diagonals (an eligible window 8-mer equal to the 8-mer of an
+    eligible read start names j - s), and the cells walked on them, from
+    each diagonal's first valid cell to its first accepting cell or its
+    end. The walks repeat aw_step of kernels/csrc/accept_wavefront.cuh over
+    all candidates at once (a change to aw_step must be made here too), so
+    those rows' verdicts come out too ("accepting"), for a check against
+    the plain version. Rows that walk every diagonal (min_score within an
+    unseeded walk's reach, kernels.accept_walks_all), given their verdicts:
+    every valid cell of a row that rejects, and one diagonal of read_len
+    cells of a row that accepts (as little as it can need)."""
     import torch
+
+    from arriba_tpu_torch import kernels
 
     N, L = reads.shape
     W = windows.shape[1]
@@ -370,8 +397,10 @@ def accept_work(reads, windows, params) -> dict:
     read_len = p[:, 0].clamp(0, L)
     win_len = p[:, 1].clamp(max=W)
     min_score = p[:, 2]
+    walks_all = kernels.accept_walks_all(params, L)
     x = read_len + 16 - min_score
-    n_seeds = torch.where(x >= 0, torch.minimum(x // 2 + 1, read_len - 8),
+    n_seeds = torch.where((x >= 0) & ~walks_all,
+                          torch.minimum(x // 2 + 1, read_len - 8),
                           0).clamp(min=0)
     lo = p[:, 3].clamp(min=0)
     hi = torch.minimum(p[:, 4], win_len - 10)
@@ -443,8 +472,14 @@ def accept_work(reads, windows, params) -> dict:
                             (i1 - i0).clamp(min=0)).sum())
     accepting = torch.zeros(N, dtype=torch.bool, device=device)
     accepting[rows[first >= 0]] = True
+    if bool(walks_all.any()):
+        if verdicts is None:
+            raise ValueError("rows that walk every diagonal need verdicts")
+        cells += int(torch.where(
+            verdicts, read_len, read_len * win_len.clamp(min=0))[
+                walks_all].sum())
     return {"positions": positions, "candidates": int(len(rows)),
-            "cells": cells, "accepting": accepting}
+            "cells": cells, "accepting": accepting, "walks_all": walks_all}
 
 
 def accept_cases() -> dict:
@@ -463,6 +498,36 @@ def accept_cases() -> dict:
             x[every - 1::every] = row
         cases[name] = arrays
     return cases
+
+
+def accept_low_min_score_inputs(seed: int = 41, N: int = 512, L: int = 192,
+                                W: int = 2048):
+    """K1's rows half of which an unseeded walk can reach: accept_inputs at
+    that shape with, by row % 8, min_score -2^20 + 1 at 2, 4 and 6 and
+    read_len - 2^20 (the reach's edge) at 0, so those rows walk every
+    diagonal, the odd rows as accept_inputs made them (the seed lookup);
+    rows 2 (mod 8) get a poly-A read against a window of C and G, where no
+    cell matches and even that min_score rejects."""
+    reads, windows, params = accept_inputs(seed, N, L, W)
+    neg = -(1 << 20)
+    params[::2, 2] = neg + 1
+    params[::8, 2] = params[::8, 0] + neg
+    for row in range(2, N, 8):
+        read_len, win_len = int(params[row, 0]), int(params[row, 1])
+        reads[row, :read_len] = ord("A")
+        windows[row, :win_len] = ord("C")
+        windows[row, 1:win_len:2] = ord("G")
+    return reads, windows, params
+
+
+def accept_many_rows_inputs(N: int = 70000, L: int = 64, W: int = 64):
+    """K1 on more rows than a grid dimension holds (65,535): accept_inputs
+    at 48 bp reads in 64 x 64 rows, narrow so that the plain version is
+    quick; every 4th row from row 1 with min_score -2^20 + 1 (every
+    diagonal walked)."""
+    reads, windows, params = accept_inputs(43, N, L, W, read_len=48)
+    params[1::4, 2] = -(1 << 20) + 1
+    return reads, windows, params
 
 
 def check_accept(name: str, arrays) -> tuple:
@@ -489,8 +554,9 @@ def check_accept(name: str, arrays) -> tuple:
     out = torch.zeros(len(reads), dtype=torch.int32, device="cuda")
     ms = cuda_ms(lambda: kernels.launch_accept_wavefront(r, w, p, out), 20,
                  setup=out.zero_)
-    work = accept_work(r, w, p)
-    if not torch.equal(work["accepting"], want):
+    work = accept_work(r, w, p, want)
+    seeded = ~work["walks_all"]
+    if not torch.equal(work["accepting"][seeded], want[seeded]):
         raise SystemExit(f"K1's candidate diagonals do not give the plain "
                          f"version's verdicts ({name})")
     n_bytes = reads.nbytes + windows.nbytes + params.nbytes + 4 * len(reads)
@@ -501,6 +567,7 @@ def check_accept(name: str, arrays) -> tuple:
                            read_len * win_len).sum())
     walk_all_ms, _ = bound(n_bytes, cells * AW_OPS_PER_CELL)
     summary = {"rows": len(reads), "accepting": int(want.sum()),
+               "walks_all_rows": int(work["walks_all"].sum()),
                "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "walk_all_bound_ms": walk_all_ms,
                "positions": work["positions"],
@@ -538,18 +605,23 @@ def low_entropy_inputs(seed: int = 3, n: int = 131072, L: int = 150):
 
 
 def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
-                          W: int = 256):
+                          W: int = 256, above_4: bool = False):
     """K3's main-path shape: code rows (0-3, PAD 4 beyond a row's length)
     as tensorize makes them for 150 bp reads, against windows of the dry
     run's width. By row % 4: an exact copy of a window stretch, a copy with
     5 % substitutions, a copy with a 1-8 base gap, a random read; a few
-    windows end in PAD. Scores span 0 to the read length."""
+    windows end in PAD. Scores span 0 to the read length. With above_4,
+    5 % of the window bytes are 5-255 before the copies are taken, so the
+    copies hold them too (K3w's bytes)."""
     import numpy as np
 
     from arriba_tpu_torch.ops.encode import PAD_CODE
 
     rng = np.random.default_rng(seed)
     windows = rng.integers(0, 4, (n, W)).astype(np.uint8)
+    if above_4:
+        spots = rng.random((n, W)) < 0.05
+        windows[spots] = rng.integers(5, 256, int(spots.sum()))
     max_gap = 8
     span = min(L, W - max_gap)
     length = rng.integers(max(1, span // 4), span + 1, n)
@@ -576,9 +648,23 @@ def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
 # launches a timed window of K2 or K3 holds, here and in compare
 K2_K3_BATCH = 10
 
+# K3w's phase-2 cases (smith_waterman_inputs): rows, L, W, (match,
+# mismatch, gap), bytes 5-255. The first is the data-parallel realign step
+# at 600 bp reads (a ReadBatch 640 wide against ref[:, :256]); then reads of
+# two 512-position tiles against 2,048-byte windows, bytes above code 4,
+# the scores (2, -3, -5) with h past 2^13 (reads of 4,608), and a gap that
+# puts match - gap outside a signed byte: each a batch K3 does not carry.
+SWW_CASES = {
+    "dp_600bp": (65536, 640, 256, (1, -1, -1), False),
+    "long": (16384, 1024, 2048, (1, -1, -1), False),
+    "bytes_above_4": (8192, 256, 256, (1, -1, -1), True),
+    "past_2_13": (128, 4608, 4608, (2, -3, -5), False),
+    "gap_past_a_byte": (8192, 256, 256, (1, -1, -200), False),
+}
+
 
 def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
-               L: int = 152, W: int = 8008):
+               L: int = 152, W: int = 8008, k: int = 8):
     """K4's phase-2 inputs (reads uint8 [N, L], windows uint8 [N, W]) by
     case, N rows (default 512, 4,096 for 'mixed'). 'bench': the JAX
     package's bench row (bench.py:650-655), random codes 0-3 with a read
@@ -596,7 +682,8 @@ def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
     16th of the window, anywhere in it, or at its last k-mer; given more
     rows than the card holds blocks of K4 (each block then takes rows in
     turn), a block meets rows that a hit decides early next to rows that
-    run to the window's end."""
+    run to the window's end. k: the k-mers planted (8 for K4's own cases;
+    the any-k kernel's cases plant k-mers of their k the same way)."""
     import numpy as np
 
     from arriba_tpu_torch.ops.encode import PAD_CODE
@@ -610,23 +697,23 @@ def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
         reads = rng.integers(0, 4, (N, L)).astype(np.uint8)
         windows = rng.integers(0, 4, (N, W)).astype(np.uint8)
         for row in range(0, N, 2 if case == "bench" else 3):
-            at = int(rng.integers(0, W - 8))
-            start = min(40, L - 8)
-            windows[row, at:at + 8] = reads[row, start:start + 8]
+            at = int(rng.integers(0, W - k))
+            start = min(40, L - k)
+            windows[row, at:at + k] = reads[row, start:start + k]
         return reads, windows
     reads = rng.integers(0, 2, (N, L)).astype(np.uint8)
     windows = rng.integers(2, 4, (N, W)).astype(np.uint8)
     if case == "no_hit":
         return reads, windows
     if case == "mixed":
-        R, WK = L - 7, W - 7
+        R, WK = L - k + 1, W - k + 1
         kind = rng.integers(0, 4, N)
         for row in np.flatnonzero(kind):
             at = (int(rng.integers(0, max(1, WK // 16))) if kind[row] == 1
                   else int(rng.integers(0, WK)) if kind[row] == 2
                   else WK - 1)
             start = int(rng.integers(0, R))
-            windows[row, at:at + 8] = reads[row, start:start + 8]
+            windows[row, at:at + k] = reads[row, start:start + k]
         return reads, windows
     if case != "pad":
         raise ValueError(f"no K4 case {case}")
@@ -637,37 +724,40 @@ def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
     for row in range(N):
         reads[row, int(rng.integers(L // 2, L + 1)):] = PAD_CODE
         windows[row, int(rng.integers(W // 2, W + 1)):] = PAD_CODE
-        seed_kmer = rng.integers(0, 4, 8).astype(np.uint8)
+        seed_kmer = rng.integers(0, 4, k).astype(np.uint8)
         kind = row % 4
         if kind == 3:
             continue
         if kind == 1:
-            seed_kmer[3] = int(rng.integers(5, 256))
+            seed_kmer[min(3, k - 1)] = int(rng.integers(5, 256))
         elif kind == 2:
-            seed_kmer[5] = PAD_CODE
-        at, start = int(rng.integers(0, W // 2 - 8)), int(rng.integers(
-            0, L // 2 - 8))
-        reads[row, start:start + 8] = seed_kmer
-        windows[row, at:at + 8] = seed_kmer
+            seed_kmer[min(5, k - 1)] = PAD_CODE
+        at, start = int(rng.integers(0, W // 2 - k)), int(rng.integers(
+            0, L // 2 - k))
+        reads[row, start:start + k] = seed_kmer
+        windows[row, at:at + k] = seed_kmer
     return reads, windows
 
 
-def mxu_work(reads, windows) -> dict:
-    """The work K4's function needs on these inputs, counted with plain
-    torch ops on their device: each row's R = L - 7 read k-mers against its
-    window k-mers, in order, up to and including the first equal to a read
-    k-mer (both over codes 0-3 only), or against all WK = W - 7 of them for
-    a row with none, 32 multiply-adds a pair ("macs", what the bound
-    counts); the full product's multiply-adds, N x R x WK x 32; each
-    row's first tile with a hit in the kernel's order (the read's slabs of
-    160 k-mers in turn, each against the window's tiles of 64 k-mers: slab
-    x the window's tiles + window tile; -1 for none) and its verdict, for
-    checks against the plain version and the kernel's emulation."""
+def mxu_work(reads, windows, k: int = 8) -> dict:
+    """The work K4's function needs on these inputs at k-mers of length k
+    (1-31), counted with plain torch ops on their device: each row's R =
+    L - k + 1 read k-mers against its window k-mers, in order, up to and
+    including the first equal to a read k-mer (both over codes 0-3 only),
+    or against all WK = W - k + 1 of them for a row with none, 4k
+    multiply-adds a pair ("macs", what the bound counts); the full
+    product's multiply-adds, N x R x WK x 4k; each row's first tile with a
+    hit in the kernel's order (the read's slabs of 160 k-mers in turn, each
+    against the window's tiles of 64 k-mers: slab x the window's tiles +
+    window tile; -1 for none) and its verdict, for checks against the plain
+    version and the kernel's emulation."""
     import torch
 
+    if not 1 <= k <= 31:
+        raise ValueError("mxu_work packs a k-mer into 62 bits: k <= 31")
     N, L = reads.shape
     W = windows.shape[1]
-    R, WK = L - 7, W - 7
+    R, WK = L - k + 1, W - k + 1
     first = torch.full((N,), -1, dtype=torch.int64, device=reads.device)
     if R <= 0 or WK <= 0:
         return {"macs": 0, "full_macs": 0, "first_tile": first,
@@ -676,7 +766,7 @@ def mxu_work(reads, windows) -> dict:
     def kmers(x, n_pos, invalid):
         value = torch.zeros(N, n_pos, dtype=torch.int64, device=x.device)
         valid = torch.ones(N, n_pos, dtype=torch.bool, device=x.device)
-        for t in range(8):
+        for t in range(k):
             code = x[:, t:t + n_pos].long()
             value = value * 4 + code.clamp(max=3)
             valid &= code <= 3
@@ -693,14 +783,14 @@ def mxu_work(reads, windows) -> dict:
     read_kmers = kmers(reads, R, -1)
     window_kmers = kmers(windows, WK, -2)
     hit, first_kmer = first_match(read_kmers, window_kmers)
-    macs = int(torch.where(hit, first_kmer + 1, WK).sum()) * R * 32
+    macs = int(torch.where(hit, first_kmer + 1, WK).sum()) * R * 4 * k
     slab, window_tiles = 160, -(-WK // 64)
     for s in reversed(range(0, R, slab)):
         slab_hit, slab_first = first_match(read_kmers[:, s:s + slab],
                                            window_kmers)
         first = torch.where(slab_hit, s // slab * window_tiles
                             + slab_first // 64, first)
-    return {"macs": macs, "full_macs": N * R * WK * 32,
+    return {"macs": macs, "full_macs": N * R * WK * 4 * k,
             "first_tile": first, "verdict": hit}
 
 
@@ -708,20 +798,20 @@ def mxu_work(reads, windows) -> dict:
 MXU_CASES = ("bench", "no_hit", "pad", "odd", "mixed")
 
 
-def onehot_product_ms(reads, windows) -> float:
+def onehot_product_ms(reads, windows, k: int = 8) -> float:
     """One torch.bmm of the float16 one-hot encodings of every read and
-    window k-mer (exact: 0/1 products, sums of at most 32): the product
-    K4 fuses with its test, alone, as a library yardstick the port never
-    calls. Median of 5 CUDA-event timed calls."""
+    window k-mer (exact: 0/1 products, sums of at most 4k <= 2,048): the
+    product K4 fuses with its test, alone, as a library yardstick the port
+    never calls. Median of 5 CUDA-event timed calls."""
     import torch
 
     def onehot(x, n_pos):
-        stacked = torch.stack([x[:, j:j + n_pos] for j in range(8)], -1)
+        stacked = torch.stack([x[:, j:j + n_pos] for j in range(k)], -1)
         return (stacked[..., None] == torch.arange(4, device=x.device)).to(
-            torch.float16).reshape(len(x), n_pos, 32)
+            torch.float16).reshape(len(x), n_pos, 4 * k)
 
-    a = onehot(reads, reads.shape[1] - 7)
-    b = onehot(windows, windows.shape[1] - 7).transpose(1, 2).contiguous()
+    a = onehot(reads, reads.shape[1] - k + 1)
+    b = onehot(windows, windows.shape[1] - k + 1).transpose(1, 2).contiguous()
     ms = cuda_ms(lambda: torch.bmm(a, b), 5)
     del a, b
     torch.cuda.empty_cache()
@@ -871,6 +961,192 @@ def check_mxu() -> dict:
             "cases": cases}
 
 
+def check_smith_waterman_wide() -> dict:
+    """K3w through realign.smith_waterman_scores against its plain version
+    on the card, exactly, on each case of SWW_CASES, each routed to K3w
+    before launch (kernels.sw_route), with each case's launch time (median
+    of 10 CUDA-event timed windows of 3 launches), its bound (every cell
+    whose read and window bytes are both not PAD, SWW_OPS_PER_CELL integer
+    operations each, against the bytes read and written once) and the
+    plain version's time (one call, after the comparison's). No PyTorch
+    call computes these scores: library_ms is null. Returns K3w's record,
+    the data-parallel step's shape (dp_600bp) its main case."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    cases = {}
+    for name, (n, L, W, params, above_4) in SWW_CASES.items():
+        reads, windows = smith_waterman_inputs(n=n, L=L, W=W,
+                                               above_4=above_4)
+        r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
+        route = kernels.sw_route(r, w, *params)
+        if route != "smith_waterman_wide":
+            raise SystemExit(f"K3w's case {name} routes to {route}")
+        got = realign.smith_waterman_scores(r, w, *params)
+        want = realign.smith_waterman_scores_plain(r, w, *params)
+        err = int((got - want).abs().max())
+        high = int(want.max())
+        if err != 0 or high <= 8:
+            raise SystemExit(f"K3w disagrees with its plain version or its "
+                             f"scores stay at 8 or below ({name})")
+        if name == "past_2_13" and high < 1 << 13:
+            raise SystemExit("K3w's past_2_13 case stays below 2^13")
+        plain_ms = cuda_ms(
+            lambda: realign.smith_waterman_scores_plain(r, w, *params), 1,
+            warm_up=False)
+        out = torch.empty(n, dtype=torch.int32, device="cuda")
+        carry = kernels.sw_wide_carry(r, w)
+        ms = cuda_ms(lambda: kernels.launch_smith_waterman_wide(
+            r, w, out, carry, *params), 10, batch=3)
+        if not torch.equal(out, want):
+            raise SystemExit(f"K3w's timed launches disagree ({name})")
+        read_len = (reads != PAD_CODE).sum(axis=1).astype(np.int64)
+        win_len = (windows != PAD_CODE).sum(axis=1).astype(np.int64)
+        cells = float((read_len * win_len).sum())
+        n_bytes = reads.nbytes + windows.nbytes + 4 * n
+        bound_ms, bound_by = bound(n_bytes, cells * SWW_OPS_PER_CELL)
+        cases[name] = {"rows": n, "width": [L, W], "scores": list(params),
+                       "max_score": high, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "cells": cells}
+        log(f"K3w {name} ({n} x {L} x {W}, scores {params}): max score "
+            f"{high}, equal to the plain version; {ms:.4f} ms a launch, "
+            f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by},"
+            f" {bound_ms / ms:.1%})")
+        del r, w, out, carry, got, want
+        torch.cuda.empty_cache()
+    main = cases["dp_600bp"]
+    return {"name": "smith_waterman_wide", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/smith_waterman_wide.cu",
+            "replaces": "arriba_tpu/ops/realign.py:162",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "cases": cases}
+
+
+# K4's any-k kernel: the k it is checked and timed at, each on the bench
+# rows (mxu_inputs 'bench') and on case (d) ('odd'), k-mers of that k
+# planted
+MXU_ANY_K = (1, 4, 12, 16, 31)
+
+
+def check_mxu_any_k() -> list:
+    """K4's any-k kernel through realign.mxu_shared_kmer_mask against the
+    plain version on the card, exactly, at each k of MXU_ANY_K on the bench
+    rows and on case (d), each routed before launch (kernels.mxu_route) and
+    launched three more times with the output filled with 2 first, every
+    verdict checked; each case's launch time (median of 20 windows of
+    K2_K3_BATCH launches), its bound (mxu_work at k: 4k multiply-adds a
+    k-mer pair up to each row's first hit, at the int8 tensor-core rate),
+    the full product's bound, the plain version's time and, on the bench
+    rows, one torch.bmm of the one-hots at k (onehot_product_ms). Returns a
+    record a k, the bench rows its main case."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    records = []
+    for k in MXU_ANY_K:
+        if kernels.mxu_route(k) != "mxu_kmer_screen_any_k":
+            raise SystemExit(f"k = {k} does not route to the any-k kernel")
+        cases = {}
+        for name in ("bench", "odd"):
+            reads, windows = mxu_inputs(name, k=k)
+            r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
+            got = realign.mxu_shared_kmer_mask(r, w, k)
+            want = realign.mxu_shared_kmer_mask_plain(r, w, k)
+            work = mxu_work(r, w, k)
+            err = int((got.int() - want.int()).abs().max())
+            if err != 0 or not torch.equal(work["verdict"], want):
+                raise SystemExit(f"K4 at k = {k} disagrees with its plain "
+                                 f"version ({name})")
+            out = torch.empty(len(reads), dtype=torch.uint8, device="cuda")
+            for _ in range(3):
+                out.fill_(2)
+                kernels.launch_mxu_kmer_screen(r, w, out, k)
+                if not torch.equal(out, want.to(torch.uint8)):
+                    raise SystemExit(f"K4 at k = {k} disagrees on a repeat "
+                                     f"({name})")
+            ms = cuda_ms(lambda: kernels.launch_mxu_kmer_screen(r, w, out, k),
+                         20, batch=K2_K3_BATCH)
+            plain_ms = cuda_ms(
+                lambda: realign.mxu_shared_kmer_mask_plain(r, w, k), 3)
+            n_bytes = reads.nbytes + windows.nbytes + len(reads)
+            bound_ms, bound_by = bound(n_bytes, 2 * work["macs"],
+                                       INT8_OPS_PER_S)
+            full_ms, _ = bound(n_bytes, 2 * work["full_macs"], INT8_OPS_PER_S)
+            hits = int(want.sum())
+            cases[name] = {"rows": len(reads), "width": [reads.shape[1],
+                                                         windows.shape[1]],
+                           "hits": hits, "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "macs": work["macs"],
+                           "full_product_bound_ms": full_ms}
+            if name == "bench":
+                cases[name]["library_ms"] = onehot_product_ms(r, w, k)
+            log(f"K4 k={k} {name}: {hits}/{len(reads)} rows share a k-mer, "
+                f"equal to the plain version; {ms:.4f} ms a launch, plain "
+                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{bound_ms / ms:.1%}); full product {full_ms:.4f} ms"
+                + (f"; torch.bmm of the one-hots "
+                   f"{cases[name]['library_ms']:.4f} ms"
+                   if name == "bench" else ""))
+        main = cases["bench"]
+        records.append({
+            "name": f"mxu_kmer_screen_any_k k={k}", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/mxu_kmer_screen.cu",
+            "replaces": "arriba_tpu/ops/realign.py:79",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "full_product_bound_ms": main["full_product_bound_ms"],
+            "cases": cases})
+    return records
+
+
+def check_accept_variants() -> list:
+    """K1's rows that walk every diagonal (accept_low_min_score_inputs,
+    512 x 192 x 2,048, half the rows) and a launch of more rows than a grid
+    dimension holds (accept_many_rows_inputs, 70,000 x 64 x 64), each
+    through realign.accept_wavefront against the plain version on the card
+    and timed as check_accept times K1; the plain version's time is one
+    call. Returns a record each."""
+    import torch
+
+    from arriba_tpu_torch.ops import realign
+
+    records = []
+    for name, make in (("every_diagonal", accept_low_min_score_inputs),
+                       ("rows_70000", accept_many_rows_inputs)):
+        arrays = make()
+        summary, want = check_accept(name, arrays)
+        if not 0 < summary["walks_all_rows"] < summary["rows"] or not (
+                0 < summary["accepting"] < summary["rows"]):
+            raise SystemExit(f"K1's {name} case does not mix both modes and "
+                             f"both verdicts")
+        r, w, p = (torch.from_numpy(x).to("cuda") for x in arrays)
+        summary["plain_ms"] = cuda_ms(
+            lambda: realign.accept_wavefront_plain(r, w, *p.unbind(dim=1)),
+            1, warm_up=False)
+        records.append({
+            "name": f"accept_wavefront {name}", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/accept_wavefront.cu",
+            "replaces": "arriba_tpu/ops/realign.py:444",
+            "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+            "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
+            "bound_by": summary["bound_by"], "library_ms": None,
+            "walk_all_bound_ms": summary["walk_all_bound_ms"],
+            "cases": {name: summary}})
+    return records
+
+
 def check_kernels() -> list:
     import numpy as np
     import torch
@@ -979,8 +1255,16 @@ def check_kernels() -> list:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
-    # K4: the one-hot 8-mer screen on the int8 tensor cores
+    # K3w: what K3 does not carry
+    records.append(check_smith_waterman_wide())
+
+    # K4: the one-hot 8-mer screen on the int8 tensor cores, then its
+    # any-k kernel
     records.append(check_mxu())
+    records += check_mxu_any_k()
+
+    # K1's rows that walk every diagonal, and 70,000 rows a launch
+    records += check_accept_variants()
     return records
 
 
@@ -1203,6 +1487,71 @@ def check_sharded(state, n: int) -> int:
     return launches["smith_waterman"]
 
 
+def realign_600bp(n_reads: int = 4096, cpu: bool = False) -> dict:
+    """The data-parallel realign step (parallel.dp.sharded_realign_step) on
+    random_read_batch(rng, n_reads, 600): a ReadBatch 640 wide, which K3
+    does not carry, against ref[:, :256], at 1 and 4 shards on the card,
+    equal to each other and to the step's plain arithmetic on the card (the
+    8-mer screen and smith_waterman_scores_plain); with cpu, the 1-shard
+    step on the CPU (the plain versions) too. Returns the kernel launches
+    of the card runs, counted from 0, and each card run's seconds."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+    from arriba_tpu_torch.ops.encode import random_read_batch
+    from arriba_tpu_torch.parallel.dp import (make_mesh, shard_batch,
+                                              sharded_realign_step)
+
+    batch = random_read_batch(np.random.default_rng(5), n_reads, 600)
+    runs = [(torch.device("cuda"), 1), (torch.device("cuda"), 4)]
+    if cpu:
+        runs.append((torch.device("cpu"), 1))
+    results, seconds = [], {}
+    kernels.reset_launch_counts()
+    for device, shards in runs:
+        if device.type == "cpu":
+            launches = dict(kernels.launch_counts)
+        mesh = make_mesh(shards, device)
+        sharded = shard_batch(batch, mesh)
+        start = time.perf_counter()
+        result, total = sharded_realign_step(mesh)(
+            sharded.bases, sharded.ref[:, :256].contiguous(), sharded.length)
+        values = {key: value[:n_reads].cpu() for key, value in result.items()}
+        if device.type == "cuda":
+            seconds[shards] = time.perf_counter() - start
+        results.append((f"{device.type} x {shards}", values, int(total)))
+    if not cpu:
+        launches = dict(kernels.launch_counts)
+    bases = torch.from_numpy(batch.bases[:n_reads]).to("cuda")
+    ref = torch.from_numpy(batch.ref[:n_reads, :256].copy()).to("cuda")
+    length = torch.from_numpy(batch.length[:n_reads]).to("cuda")
+    seeds = realign.shared_kmer_mask(bases, ref)
+    scores = realign.smith_waterman_scores_plain(bases, ref)
+    min_score = (torch.tensor(0.8, device="cuda") * length.float()
+                 + 0.5).int()
+    plain = {"seed_hit": seeds.cpu(), "sw_score": scores.cpu(),
+             "can_align": (seeds & (scores >= min_score)).cpu()}
+    for label, values, total in results:
+        for key, want in plain.items():
+            if not torch.equal(values[key], want):
+                raise SystemExit(f"the realign step on 600 bp reads: {key} "
+                                 f"differs from the plain version ({label})")
+        if total != int(plain["can_align"].sum()):
+            raise SystemExit(f"the realign step on 600 bp reads: the "
+                             f"alignable total differs ({label})")
+    log(f"realign step on {n_reads} reads of 600 bp ({batch.bases.shape[1]}"
+        f" wide) x ref[:, :256]: 1 and 4 shards on the card"
+        + (" and 1 on the CPU" if cpu else "") + " equal to the plain "
+        f"version (scores {int(scores.min())}..{int(scores.max())}); "
+        f"{', '.join(f'{n} shard(s) {t:.3f} s' for n, t in seconds.items())}"
+        f"; kernel launches {launches}")
+    if launches["smith_waterman_wide"] <= 0:
+        raise SystemExit("K3w never launched on the 600 bp realign step")
+    return {"launches": launches, "seconds": seconds}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the one-hot 8-mer screen as its caller drives it
 
@@ -1232,6 +1581,63 @@ def mxu_path() -> tuple:
     sorted_ms = cuda_ms(lambda: realign.shared_kmer_mask(r, w), 20)
     log(f"the sorted screen on the bench rows: {sorted_ms:.4f} ms")
     return launches, sorted_ms
+
+
+def mxu_any_k_path() -> dict:
+    """realign.mxu_shared_kmer_mask on the bench rows at each k of
+    MXU_ANY_K (k-mers of that k planted), as a caller of the JAX package's
+    op with another k would call it, held against the sorted screen at k
+    (k <= 15, where its k-mer values fit int32) or the plain version.
+    Returns the any-k kernel's launches at each k, each counted from 0."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    launches = {}
+    for k in MXU_ANY_K:
+        r, w = (torch.from_numpy(x).to("cuda")
+                for x in mxu_inputs("bench", k=k))
+        kernels.reset_launch_counts()
+        verdict = realign.mxu_shared_kmer_mask(r, w, k)
+        torch.cuda.synchronize()
+        launches[k] = kernels.launch_counts["mxu_kmer_screen_any_k"]
+        want = (realign.shared_kmer_mask(r, w, k) if k <= 15
+                else realign.mxu_shared_kmer_mask_plain(r, w, k))
+        if not torch.equal(verdict, want):
+            raise SystemExit(f"the one-hot screen at k = {k} disagrees with "
+                             f"the sorted screen or the plain version")
+        log(f"mxu screen at k = {k}: {int(verdict.sum())}/{len(r)} rows "
+            f"share a k-mer, equal to the "
+            f"{'sorted screen' if k <= 15 else 'plain version'}; kernel "
+            f"launches {dict(kernels.launch_counts)}")
+    return launches
+
+
+def accept_path() -> int:
+    """realign.accept_wavefront, the op, on accept_many_rows_inputs (70,000
+    rows of 64 x 64 in one launch, a quarter of them with min_score
+    -2^20 + 1, so both of K1's modes), against the plain version on the
+    card. Returns K1's launches in it, counted from 0."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    r, w, p = (torch.from_numpy(x).to("cuda")
+               for x in accept_many_rows_inputs())
+    kernels.reset_launch_counts()
+    verdict = realign.accept_wavefront(r, w, p)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["accept_wavefront"]
+    if not torch.equal(verdict, realign.accept_wavefront_plain(
+            r, w, *p.unbind(dim=1))):
+        raise SystemExit("K1 on 70,000 rows disagrees with the plain version")
+    log(f"accept wavefront op: {int(verdict.sum())}/{len(r)} rows accept "
+        f"({int(kernels.accept_walks_all(p, r.shape[1]).sum())} walk every "
+        f"diagonal), equal to the plain version; kernel launches "
+        f"{dict(kernels.launch_counts)}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1755,15 +2161,23 @@ def main() -> int:
     check_entry()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
-    # phase 5: the data-parallel path is K3's main path
+    # phase 5: the data-parallel path is K3's main path, and at 600 bp
+    # reads K3w's
     t0 = time.perf_counter()
     launches["smith_waterman"] = check_sharded(states[0], 4)
     del states[:]
+    launches["smith_waterman_wide"] = realign_600bp()["launches"][
+        "smith_waterman_wide"]
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
-    # phase 6: K4's caller
+    # phase 6: the callers of K4 (at k = 8 and at other k) and of K1's op
     t0 = time.perf_counter()
     launches["mxu_kmer_screen"], sorted_ms = mxu_path()
+    for k, count in mxu_any_k_path().items():
+        launches[f"mxu_kmer_screen_any_k k={k}"] = count
+    count = accept_path()
+    for name in ("every_diagonal", "rows_70000"):
+        launches[f"accept_wavefront {name}"] = count
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     # phase 7: the cohort runner, every worker on the card
@@ -1778,7 +2192,8 @@ def main() -> int:
     tool_phase(sample, out_c)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
-    where = {"smith_waterman": "phase 5", "mxu_kmer_screen": "phase 6"}
+    where = {"accept_wavefront": "run A", "low_entropy": "run A",
+             "smith_waterman": "phase 5", "smith_waterman_wide": "phase 5"}
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "mxu_kmer_screen":
@@ -1787,7 +2202,7 @@ def main() -> int:
             f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
             f"({record['bound_by']}, {record['bound_ms'] / record['ms']:.1%} "
             f"of the kernel's time), {record['launches']} launches in "
-            f"{where.get(record['name'], 'run A')}")
+            f"{where.get(record['name'], 'phase 6')}")
         if record["launches"] <= 0:
             raise SystemExit(f"{record['name']} never launched on the main "
                              f"path")

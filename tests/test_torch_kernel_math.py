@@ -13,9 +13,13 @@ counter words, tested once per 3-mer, or for wider rows the sequential
 walk with three counters a 3-mer; K3: the 32 lanes of a warp over a pair of
 rows in 16-bit halves, each lane a stripe of read positions, stepping over
 the window columns with lane k taking lane k-1's previous word as the
-shuffle does, with the host emulations of the 16x2 instructions), and the
-results are held, exactly, against the port's plain PyTorch versions and
-the JAX package's ops.
+shuffle does, with the host emulations of the 16x2 instructions; K3w:
+the 32 lanes of a warp over one row in int32, the read in tiles whose last
+row is carried to the next through a carry row; K4: its warpgroup's
+products emulated from its layouts, at k = 8 and, for its any-k kernel,
+at other k with biased digits; K1's rows that walk every diagonal), and
+the results are held, exactly, against the port's plain PyTorch versions
+and the JAX package's ops.
 """
 
 import ctypes
@@ -44,6 +48,7 @@ HARNESS = r"""
 #include "low_entropy.cuh"
 #include "mxu_kmer_screen.cuh"
 #include "smith_waterman.cuh"
+#include "smith_waterman_wide.cuh"
 
 // K4's group of MK_GROUP wgmma.m64n160k32 s8 for one warpgroup, emulated
 // from the layouts: tile j's 128 threads' A registers scattered into A_j
@@ -131,7 +136,218 @@ static void sw_pair(const uint8_t* a, const uint8_t* b, const uint8_t* wa,
     }
 }
 
+// K3w's warp over one row: the read in tiles of 32 S positions; per tile
+// every 128 steps each lane loads four window bytes and four carry entries
+// (sw_wide_up); lane 0 takes column t's byte and "up" from lane (t / 4) %
+// 32's chunk, lane k lane k-1's h and byte of the previous step (lanes run
+// from 31 down to 0), and lane 31 of a tile with a successor stores its h
+// into the carry row (sw_wide_store_column). The carry starts as garbage,
+// so a read before its write would show.
+template <int S>
+static int32_t sww_row(const uint8_t* read, const uint8_t* win, int L, int W,
+                       int match, int mismatch, int gap) {
+    arriba::SwWideLane<S> lanes[32];
+    int h[32], w[32], up4[32][4];
+    uint32_t chunk[32];
+    std::vector<int32_t> carry(W > 0 ? W : 1, 0x7eadbeef);
+    for (int k = 0; k < 32; ++k) lanes[k].best = 0;
+    const int tiles = arriba::sw_wide_tiles(L, S);
+    for (int tile = 0; tile < tiles; ++tile) {
+        const int first = tile * 32 * S;
+        for (int k = 0; k < 32; ++k) {
+            arriba::sw_wide_tile_init<S>(&lanes[k], read, first + k * S, L);
+            h[k] = 0;
+            w[k] = arriba::SWW_PAD;
+        }
+        const int n_steps = arriba::sw_wide_steps(first, L, W, S);
+        const bool stores = tile + 1 < tiles;
+        for (int base = 0; base < n_steps; base += arriba::SWW_CHUNK) {
+            for (int k = 0; k < 32; ++k) {
+                chunk[k] = 0;
+                for (int c = 0; c < 4; ++c) {
+                    const int at = base + 4 * k + c;
+                    const uint32_t byte = at < W ? win[at] : arriba::SWW_PAD;
+                    chunk[k] |= byte << (8 * c);
+                    up4[k][c] = arriba::sw_wide_up(carry.data(), tile, at, W);
+                }
+            }
+            const int steps = std::min(arriba::SWW_CHUNK, n_steps - base);
+            for (int i = 0; i < steps; ++i) {
+                const int t = base + i;
+                const int up0 = up4[i >> 2][i & 3];
+                const int w0 = (int)((chunk[i >> 2] >> (8 * (i & 3))) & 0xffu);
+                for (int k = 31; k >= 0; --k) {
+                    const int in_h = k == 0 ? up0 : h[k - 1];
+                    w[k] = k == 0 ? w0 : w[k - 1];
+                    h[k] = arriba::sw_wide_column<S>(&lanes[k], in_h, w[k],
+                                                     match, mismatch, gap);
+                    if (stores && k == 31) {
+                        const int j = arriba::sw_wide_store_column(t, W);
+                        if (j >= 0) carry[j] = h[31];
+                    }
+                }
+            }
+        }
+    }
+    int32_t best = 0;
+    for (int k = 0; k < 32; ++k) best = std::max(best, lanes[k].best);
+    return best;
+}
+
+// K4's any-k kernel on its rows (mxu_kmer_screen_any_kernel): per row,
+// per slab of MK_N read k-mers, per group of plan.groups window tiles, the
+// accumulator started at plan.bias; per chunk of plan.kchunk k-steps the
+// scaled B images written from mk_any_b_word (at the group's first chunk
+// when they hold every k-step, at every chunk otherwise), and per k-step
+// each tile's 128 threads' scaled A (mk_any_a_fragment) scattered by the A
+// layout, its B read back through the descriptor's fields from image
+// mk_any_image, the product added into the accumulator; then the fold,
+// and plan.mask for the vote. first_tile: the first tile with a hit in
+// the row's order (slab x the window's tiles + tile; the digit names the
+// tile), -1 for none.
+static void mk_any_tile(const uint32_t a[128][4], const uint8_t* image,
+                        uint32_t base, int32_t D[64][arriba::MK_N]) {
+    static int8_t A[64][32], B[32][arriba::MK_N];
+    for (int thread = 0; thread < 128; ++thread) {
+        for (int r = 0; r < 4; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                A[16 * (thread >> 5) + arriba::mk_a_row(thread & 31, r)]
+                 [arriba::mk_a_col(thread & 31, r, byte)] =
+                    (int8_t)(a[thread][r] >> (8 * byte));
+            }
+        }
+    }
+    const uint64_t desc = arriba::mk_desc(base, arriba::MK_LBO,
+                                          arriba::MK_SBO);
+    for (int k = 0; k < 32; ++k) {
+        for (int n = 0; n < arriba::MK_N; ++n) {
+            B[k][n] = (int8_t)image[arriba::mk_desc_address(desc, n, k)
+                                    - base];
+        }
+    }
+    for (int i = 0; i < 64; ++i) {
+        for (int n = 0; n < arriba::MK_N; ++n) {
+            int32_t dot = 0;
+            for (int k = 0; k < 32; ++k) dot += A[i][k] * B[k][n];
+            D[i][n] += dot;
+        }
+    }
+}
+
 extern "C" {
+
+// K3w's work per row, with the stripe its dispatch picks
+void sww_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
+              int n, int L, int W, int match, int mismatch, int gap) {
+    const int stripe = arriba::sw_wide_stripe(L);
+    auto row_fn = stripe == 1 ? sww_row<1> : stripe == 2 ? sww_row<2>
+                : stripe == 4 ? sww_row<4> : stripe == 8 ? sww_row<8>
+                : stripe == 12 ? sww_row<12> : sww_row<16>;
+    for (int row = 0; row < n; ++row) {
+        out[row] = row_fn(reads + (long)row * L, windows + (long)row * W, L,
+                          W, match, mismatch, gap);
+    }
+}
+
+// K3w's plan for a read of L positions: stripe, tiles
+void sww_plan(int L, int32_t* out) {
+    out[0] = arriba::sw_wide_stripe(L);
+    out[1] = arriba::sw_wide_tiles(L, out[0]);
+}
+
+// mk_plan's fields: k, ksteps, digit, groups, images, kchunk, bias, mask,
+// then each tile's A shift and image
+void mk_plan_fields(int k, int64_t* out) {
+    const arriba::MkPlan p = arriba::mk_plan(k);
+    const int64_t fields[] = {p.k, p.ksteps, p.digit, p.groups, p.images,
+                              p.kchunk, p.bias, (int64_t)p.mask};
+    for (int i = 0; i < 8; ++i) out[i] = fields[i];
+    for (int j = 0; j < arriba::MK_GROUP; ++j) {
+        out[8 + 2 * j] = arriba::mk_any_a_shift(p, j);
+        out[9 + 2 * j] = arriba::mk_any_image(p, j);
+    }
+}
+
+void mk_any_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
+                 int64_t* first_tile, int n, int L, int W, int k) {
+    const arriba::MkPlan p = arriba::mk_plan(k);
+    const int slabs = (arriba::mk_any_kmers(L, k) + arriba::MK_N - 1)
+                      / arriba::MK_N;
+    const int tiles = (arriba::mk_any_kmers(W, k) + 63) / 64;
+    const int groups = (tiles + p.groups - 1) / p.groups;
+    const int span = p.groups * 64;
+    const uint32_t base = 0x400;
+    std::vector<uint8_t> images((size_t)p.images * p.kchunk
+                                * arriba::MK_IMAGE);
+    static int32_t D[64][arriba::MK_N];
+    static uint32_t a[128][4];
+    for (int row = 0; row < n; ++row) {
+        const uint8_t* read = reads + (long)row * L;
+        const uint8_t* window = windows + (long)row * W;
+        first_tile[row] = -1;
+        for (int slab = 0; slab < slabs && first_tile[row] < 0; ++slab) {
+            for (int g = 0; g < groups && first_tile[row] < 0; ++g) {
+                for (int i = 0; i < 64; ++i) {
+                    for (int c = 0; c < arriba::MK_N; ++c) D[i][c] = p.bias;
+                }
+                for (int c0 = 0; c0 < p.ksteps; c0 += p.kchunk) {
+                    const int c_n = std::min(p.kchunk, p.ksteps - c0);
+                    if (g == 0 || p.kchunk < p.ksteps) {
+                        for (int s = 0; s < c_n; ++s) {
+                            for (int w = 0; w < arriba::MK_IMAGE / 4; ++w) {
+                                const uint32_t word = arriba::mk_any_b_word(
+                                    read, L, slab * arriba::MK_N, k, c0 + s,
+                                    w);
+                                for (int i = 0; i < p.images; ++i) {
+                                    const uint32_t scaled =
+                                        word << arriba::mk_any_b_shift(i);
+                                    uint8_t* at = &images[
+                                        (size_t)(i * p.kchunk + s)
+                                        * arriba::MK_IMAGE + 4 * w];
+                                    for (int b = 0; b < 4; ++b) {
+                                        at[b] = (uint8_t)(scaled >> (8 * b));
+                                    }
+                                }
+                            }
+                        }
+                    }
+                    for (int s = 0; s < c_n; ++s) {
+                        for (int j = 0; j < p.groups; ++j) {
+                            for (int thread = 0; thread < 128; ++thread) {
+                                arriba::mk_any_a_fragment(
+                                    window, W, g * span + j * 64
+                                                   + 16 * (thread >> 5),
+                                    k, c0 + s, thread & 31, a[thread],
+                                    arriba::mk_any_a_shift(p, j));
+                            }
+                            const int image = arriba::mk_any_image(p, j);
+                            mk_any_tile(a, &images[(size_t)(image * p.kchunk
+                                                            + s)
+                                                   * arriba::MK_IMAGE],
+                                        base, D);
+                        }
+                    }
+                }
+                bool hit = false;
+                uint32_t seen = 0;
+                for (int i = 0; i < 64; ++i) {
+                    hit |= arriba::mk_any_hit<arriba::MK_N>(p, D[i]);
+                    seen = arriba::mk_fold<arriba::MK_N>(seen, D[i]);
+                }
+                if (!hit) continue;
+                for (int j = 0; j < p.groups; ++j) {
+                    if (p.groups == 1
+                        || seen >> (p.digit - 1 + p.digit * j) & 1u) {
+                        first_tile[row] = (int64_t)slab * tiles
+                                          + g * p.groups + j;
+                        break;
+                    }
+                }
+            }
+        }
+        out[row] = first_tile[row] >= 0;
+    }
+}
 
 // K1's work per row: every diagonal delta = j - i of the row, OR-reduced
 void aw_rows(const uint8_t* reads, const uint8_t* windows,
@@ -150,7 +366,9 @@ void aw_rows(const uint8_t* reads, const uint8_t* windows,
 
 // K1's work per row as the kernel does it: per strip of diagonals, the
 // read's seeds in the bitmap, the window stretch coded once, the scan
-// claiming each named diagonal once, then the walks of the claimed ones.
+// claiming each named diagonal once, then the walks of the claimed ones;
+// a row whose min_score an unseeded walk can reach (aw_walks_all) walks,
+// and claims, every diagonal of the strip that aw_all_span names instead.
 // claims[row, delta + L - 1] (row stride L + W - 1) counts the claims of
 // each diagonal; every strip is scanned, also after an accept.
 void aw_rows_seeded(const uint8_t* reads, const uint8_t* windows,
@@ -176,6 +394,20 @@ void aw_rows_seeded(const uint8_t* reads, const uint8_t* windows,
         for (int k = 0; k < n_strips; ++k) {
             const int d_lo = -(L - 1) + k * strip;
             const int d_hi = std::min(d_lo + strip, W) - 1;
+            if (arriba::aw_walks_all(read_len, p[2])) {
+                int first, last;
+                arriba::aw_all_span(d_lo, d_hi, read_len, win_len, &first,
+                                    &last);
+                for (int delta = first; delta <= last; ++delta) {
+                    claims[(long)row * (L + W - 1) + delta + L - 1] += 1;
+                    if (!accept) {
+                        accept = arriba::aw_diagonal(read, window, delta,
+                                                     read_len, win_len, p[2],
+                                                     p[3], p[4]);
+                    }
+                }
+                continue;
+            }
             int jb, je;
             arriba::aw_scan_span(d_lo, d_hi, n_seeds, lo, hi, &jb, &je);
             if (jb > je) continue;
@@ -560,6 +792,10 @@ def harness(tmp_path_factory):
         ctypes.c_void_p]
     lib.mk_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     lib.mk_image_errors.argtypes = [ctypes.c_uint32]
+    lib.sww_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    lib.sww_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.mk_plan_fields.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.mk_any_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     return lib
 
 
@@ -1118,3 +1354,298 @@ def test_mxu_kmer_screen_emulation_matches_plain_and_jax(harness, case):
         assert not plain.any()
     else:
         assert 0 < plain.sum() < n
+
+
+def _sww_rows(seed, n, L, W, above_4):
+    """_sw_rows (copies, mutated copies, gapped copies, PAD tails, all-PAD
+    rows), and where above_4 is set, bytes 5-255 scattered through reads
+    and windows and carried into half the copies, so that whole-byte
+    matches above code 4 score. Past 512 positions, every other row but
+    the last two also gets a copy of a window stretch (with one
+    substitution) across the edge of K3w's first tile, so that its best
+    alignment runs through the tile carry."""
+    from .test_torch_realign import _sw_rows
+
+    reads, windows = _sw_rows(seed, n, L, W)
+    if L > 512:
+        rng = np.random.default_rng(seed + 1)
+        need = -(-(-(-L // -(-L // 512))) // 32)      # sw_wide_stripe
+        edge = 32 * min(x for x in (1, 2, 4, 8, 12, 16) if x >= need)
+        for row in range(0, n - 2, 2):
+            length = int(rng.integers(W // 2, W + 1))
+            at = int(rng.integers(0, W - length + 1))
+            start = edge - int(rng.integers(length // 4, 3 * length // 4))
+            reads[row, start:start + length] = windows[row, at:at + length]
+            reads[row, start + length // 3] ^= 1
+    if above_4:
+        rng = np.random.default_rng(seed)
+        for x in (reads, windows):
+            spots = (rng.random(x.shape) < 0.1) & (x != PAD)
+            x[spots] = rng.integers(5, 256, int(spots.sum()))
+        for row in range(0, n - 2, 2):
+            length = int(rng.integers(8, min(L, W) // 2))
+            at = int(rng.integers(0, W - length))
+            reads[row, :length] = windows[row, at:at + length]
+    return reads, windows
+
+
+PAD = 4
+
+# (seed, rows, L, W, (match, mismatch, gap), bytes above 4), each a batch
+# K3 does not carry: reads past 512 positions (two tiles of 384 and of
+# 512), bytes above code 4, h past 2^13, match - gap outside a signed
+# byte, a positive gap
+_SWW_CASES = {
+    "L640": (11, 6, 640, 96, (1, -1, -1), False),
+    "L1024": (12, 4, 1024, 64, (1, -1, -1), False),
+    "L1100_above_4": (13, 4, 1100, 40, (1, -1, -1), True),
+    "bytes_above_4": (14, 8, 100, 120, (1, -1, -1), True),
+    "past_2_13": (15, 3, 640, 512, (20, -3, -5), False),
+    "gap_past_a_byte": (16, 6, 200, 150, (2, -3, -200), False),
+    "positive_gap": (17, 4, 600, 90, (3, -2, 2), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_SWW_CASES))
+def test_smith_waterman_wide_matches_plain_and_jax(harness, case):
+    """K3w's cells and tile carry (sww_rows: the warp's lanes, the carry
+    row written by lane 31 and read back chunk by chunk by the next tile's
+    lane 0) against the port's plain version and the JAX package's jnp
+    wavefront, exactly, on batches that kernels.sw_route sends to K3w; the
+    Pallas kernel (interpret mode) too on the first two."""
+    from arriba_tpu_torch import kernels
+
+    seed, n, L, W, params, above_4 = _SWW_CASES[case]
+    reads, windows = _sww_rows(seed, n, L, W, above_4)
+    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
+    assert kernels.sw_route(r, w, *params) == "smith_waterman_wide"
+    native = np.zeros(n, np.int32)
+    harness.sww_rows(_ptr(reads), _ptr(windows), _ptr(native), n, L, W,
+                     *params)
+    plain = realign.smith_waterman_scores(r, w, *params).numpy()
+    np.testing.assert_array_equal(native, plain)
+    xla = np.asarray(jax_realign.smith_waterman_scores(
+        jnp.asarray(reads), jnp.asarray(windows), *params))
+    np.testing.assert_array_equal(plain, xla)
+    if case in ("L640", "L1024"):
+        pallas = np.asarray(jax_realign.smith_waterman_scores_pallas(
+            jnp.asarray(reads), jnp.asarray(windows), *params, block_n=n,
+            interpret=True))
+        np.testing.assert_array_equal(plain, pallas)
+    assert plain.min() == 0 and plain.max() > 8
+    if case == "past_2_13":
+        assert plain.max() >= 1 << 13
+
+
+@pytest.mark.parametrize("L", [1, 31, 33, 512, 513, 640, 1024, 1025, 1100,
+                               5000])
+def test_smith_waterman_wide_plan(harness, L):
+    """K3w's stripe and tiles: the fewest tiles of at most 512 positions,
+    the smallest stripe (1, 2, 4, 8, 12 or 16) that covers the read in
+    them, every tile but the last full."""
+    plan = np.zeros(2, np.int32)
+    harness.sww_plan(L, _ptr(plan))
+    stripe, tiles = (int(x) for x in plan)
+    assert stripe in (1, 2, 4, 8, 12, 16)
+    assert tiles == -(-L // 512)
+    assert (tiles - 1) * 32 * stripe < L <= tiles * 32 * stripe
+    smaller = [s for s in (1, 2, 4, 8, 12, 16) if s < stripe]
+    assert not smaller or tiles * 32 * smaller[-1] < L
+
+
+@pytest.mark.parametrize("L,W,params,ok", [
+    (640, 256, (1, -1, -1), True),
+    (100000, 100000, (10000, -1, -1), True),     # 10^9 + 10^4 < 2^31
+    (100000, 100000, (30000, -1, -1), False),    # 3 * 10^9
+    (1000, 1000, (1, -1, 1 << 20), True),        # ~2.1e9 - 2.1e9 ... fits
+    (1000, 1000, (1, -1, 1 << 21), False),       # 2^21 * 2000 > 2^31
+    (10, 10, (1, -(1 << 31), -1), True),
+    (10, 10, (1, -(1 << 31) - 1, -1), False),    # not an int32
+    (10, 10, (1 << 31, -1, -1), False),
+])
+def test_smith_waterman_wide_guard(L, W, params, ok):
+    """K3w's int32 guard, from shapes and scores alone: every h and sum
+    inside int32, where the JAX op's own sums are exact."""
+    from arriba_tpu_torch import kernels
+
+    if ok:
+        kernels.sw_wide_guard(L, W, *params)
+    else:
+        with pytest.raises(ValueError):
+            kernels.sw_wide_guard(L, W, *params)
+
+
+# each regime of mk_plan: digits of 4 bits (k <= 8, four tiles a group), of
+# 5 and 6 bits (three tiles), of 7-12 bits (two tiles), one tile a group
+_MK_PLAN_REGIMES = {
+    "digit4": range(1, 9),
+    "digit5": range(9, 17),
+    "digit6": range(17, 33),
+    "digit7_12": list(range(33, 130)) + [255, 256, 257, 1024, 2047, 2048],
+    "one_tile": [2049, 4096, 1 << 20, 1 << 30, (1 << 31) - 1],
+}
+
+
+@pytest.mark.parametrize("regime", list(_MK_PLAN_REGIMES))
+def test_mxu_any_k_plan(harness, regime):
+    """mk_plan's digits, for every k of a regime: 2^(D - 1) >= k, the bias
+    b = 2^(D-1) - k in every digit, the mask on bit D - 1 of every digit,
+    tile j weighted 2^(D j) through an A shift and a B image scale (1 or
+    64) of at most 2^6 each, the sum below 2^31, and the images' k-steps
+    within the budget; one tile a group (k > 2,048) has no bias and no
+    mask (the test is the largest dot against k); k = 8 gives K4's own
+    test (no bias, mask 0x8888)."""
+    for k in _MK_PLAN_REGIMES[regime]:
+        fields = np.zeros(16, np.int64)
+        harness.mk_plan_fields(k, _ptr(fields))
+        kk, ksteps, digit, groups, images, kchunk, bias, mask = (
+            int(x) for x in fields[:8])
+        m = digit - 1
+        assert kk == k and ksteps == -(-k // 8), k
+        assert 2 ** m >= k and (m == 3 or 2 ** (m - 1) < k), k
+        assert digit * (groups - 1) <= 12 and 1 <= groups <= 4, k
+        assert groups == 1 or digit * groups > 12 or groups == 4, k
+        assert images == (2 if groups > 1 else 1), k
+        assert 1 <= kchunk <= ksteps and images * kchunk * 5120 <= 98304, k
+        if groups == 1:
+            assert k > 2048 and bias == mask == 0, k
+            continue
+        assert bias == sum((2 ** m - k) << (digit * j)
+                           for j in range(groups)), k
+        assert mask == sum(1 << (m + digit * j) for j in range(groups)), k
+        assert (2 ** m) << (digit * (groups - 1)) < 2 ** 31, k
+        for j in range(groups):
+            a_shift, image = int(fields[8 + 2 * j]), int(fields[9 + 2 * j])
+            assert 0 <= a_shift <= 6, k
+            assert a_shift + 6 * image == digit * j, k
+        if k == 8:
+            assert (bias, mask, groups) == (0, 0x8888, 4)
+
+
+def _mk_any_rows(k, seed, n=10, L=60, W=400):
+    """Rows for the any-k screen: reads over codes {0, 1}, windows over
+    {2, 3} (no k-mer shared by chance), a read k-mer planted in the window
+    of rows 0, 2, 4 (at the window's last k-mer in row 4), one holding PAD
+    in row 6 and one holding a byte above 4 in row 8 (neither shared), PAD
+    tails in the odd rows."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 2, (n, L)).astype(np.uint8)
+    windows = rng.integers(2, 4, (n, W)).astype(np.uint8)
+    for row in range(0, n, 2):
+        kmer = rng.integers(0, 4, k).astype(np.uint8)
+        if row == 6:
+            kmer[k // 2] = PAD
+        elif row == 8:
+            kmer[(k - 1) // 3] = int(rng.integers(5, 256))
+        start = int(rng.integers(0, L - k + 1))
+        at = W - k if row == 4 else int(rng.integers(0, W - k + 1))
+        reads[row, start:start + k] = kmer
+        windows[row, at:at + k] = kmer
+    for row in range(1, n, 2):
+        reads[row, int(rng.integers(k, L + 1)):] = PAD
+        windows[row, int(rng.integers(k, W + 1)):] = PAD
+    return reads, windows
+
+
+# k = 1 to 31 (one to four k-steps, digits of 4 to 6 bits, 3 or 4 tiles a
+# group), k = 8 (the plan at K4's own k), k = 40 (two tiles a group), k =
+# 80 (more k-steps than the images hold: rebuilt chunk by chunk) and k =
+# 2,049 (one tile a group, the largest dot tested against k)
+@pytest.mark.parametrize("k,L,W", [(1, 60, 400), (4, 60, 400),
+                                   (12, 60, 400), (16, 60, 400),
+                                   (31, 60, 400), (8, 200, 300),
+                                   (40, 90, 300), (80, 120, 200),
+                                   (2049, 2100, 2120)])
+def test_mxu_any_k_emulation_matches_plain_and_jax(harness, k, L, W):
+    """K4's any-k kernel (mk_any_rows: the accumulator started at the
+    plan's bias, the scaled B images per k-step read back through the
+    descriptor, the scaled A of each tile from the window's bytes, the
+    fold and the mask) against the port's plain version and the JAX
+    package's mxu_shared_kmer_mask at that k, exactly (past k = 80 against
+    the k-mer sets instead: XLA would compile one slice a position); each
+    row's first tile with a hit against mxu_work (k <= 31)."""
+    from chip_smoke import mxu_work
+
+    reads, windows = _mk_any_rows(k, k * 101 + L, L=L, W=W)
+    n = len(reads)
+    verdict = np.zeros(n, np.uint8)
+    first = np.zeros(n, np.int64)
+    harness.mk_any_rows(_ptr(reads), _ptr(windows), _ptr(verdict),
+                        _ptr(first), n, L, W, k)
+    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
+    plain = realign.mxu_shared_kmer_mask_plain(r, w, k).numpy()
+    np.testing.assert_array_equal(verdict != 0, plain)
+    if k <= 80:
+        xla = np.asarray(jax_realign.mxu_shared_kmer_mask(
+            jnp.asarray(reads), jnp.asarray(windows), k=k))
+        np.testing.assert_array_equal(plain, xla)
+    else:
+        def kmers(x):
+            return {x[p:p + k].tobytes() for p in range(len(x) - k + 1)
+                    if x[p:p + k].max() <= 3}
+        shared = [bool(kmers(r_) & kmers(w_))
+                  for r_, w_ in zip(reads, windows)]
+        np.testing.assert_array_equal(plain, shared)
+    assert plain.tolist() == [row in (0, 2, 4) for row in range(n)]
+    if k <= 31:
+        work = mxu_work(r, w, k)
+        np.testing.assert_array_equal(first, work["first_tile"].numpy())
+        np.testing.assert_array_equal(plain, work["verdict"].numpy())
+
+
+def _accept_low_min_score_rows(seed, N=16, L=128, W=512):
+    """_accept_rows with min_score -2^20 + 1 in every other row, and by
+    row % 8 at 1 and 3 read_len - 2^20 (an unseeded walk's reach: every
+    diagonal walked) and read_len - 2^20 + 1 (the seed lookup); rows 14 and
+    15 with disjoint read and window alphabets, so no cell matches and
+    even the lowest min_score rejects."""
+    reads, windows, params = _accept_rows(seed, N, L, W)
+    neg = -(1 << 20)
+    params[::2, 2] = neg + 1
+    params[1::8, 2] = params[1::8, 0] + neg
+    params[3::8, 2] = params[3::8, 0] + neg + 1
+    for row in (14, 15):
+        read_len, win_len = int(params[row, 0]), int(params[row, 1])
+        reads[row, :read_len] = ord("A")
+        windows[row, :win_len] = np.where(np.arange(win_len) % 2, ord("C"),
+                                          ord("G"))
+    return reads, windows, params
+
+
+def test_accept_every_diagonal_mode_matches_plain_and_jax(harness):
+    """K1's rows whose min_score an unseeded walk can reach (down to
+    -2^20 + 1): the kernel's per-row procedure (aw_rows_seeded, which walks
+    every diagonal of such a row) against the port's plain version, the
+    JAX package's XLA twin and its Pallas kernel (interpret mode),
+    exactly; each diagonal walked at most once."""
+    reads, windows, params = _accept_low_min_score_rows(23)
+    seeded, claims = _seed_lookup(harness, reads, windows, params)
+    plain = realign.accept_wavefront(torch.from_numpy(reads),
+                                     torch.from_numpy(windows),
+                                     torch.from_numpy(params)).numpy()
+    xla = np.asarray(jax_realign._accept_wavefront_kernel(
+        jnp.asarray(reads), jnp.asarray(windows),
+        *(jnp.asarray(params[:, c]) for c in range(5))))
+    pallas_params = np.zeros((len(reads), 128), np.int32)
+    pallas_params[:, :5] = params
+    pallas = np.asarray(jax_realign._accept_wavefront_pallas(
+        jnp.asarray(reads), jnp.asarray(windows), jnp.asarray(pallas_params),
+        block_n=len(reads), interpret=True))
+    np.testing.assert_array_equal(seeded, plain)
+    np.testing.assert_array_equal(plain, xla)
+    np.testing.assert_array_equal(plain, pallas)
+    assert claims.max() <= 1
+    # the rows the host helper names walk (claim) every diagonal that holds
+    # a valid cell, the others only seeded ones
+    from arriba_tpu_torch import kernels
+
+    walks_all = kernels.accept_walks_all(torch.from_numpy(params),
+                                         reads.shape[1]).numpy()
+    assert walks_all.tolist() == [row % 2 == 0 or row % 8 == 1
+                                  for row in range(len(reads))]
+    L = reads.shape[1]
+    for row, (read_len, win_len) in enumerate(params[:, :2]):
+        walked = claims[row, L - read_len:L - 1 + win_len]
+        assert walked.all() == walks_all[row], row
+    assert not plain[14] and not plain[15]
+    assert plain[:14:2].all()

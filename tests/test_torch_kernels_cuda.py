@@ -134,16 +134,25 @@ def test_smith_waterman_kernel_odd_batches(cuda, N, L, W):
                                         (512, 256, (16, -1, -1)),
                                         (256, 256, (1, -200, -1))])
 def test_smith_waterman_kernel_refuses_past_its_guard(cuda, L, W, params):
-    reads = torch.zeros(4, L, dtype=torch.uint8, device=cuda)
-    windows = torch.zeros(4, W, dtype=torch.uint8, device=cuda)
+    """Shapes and scores past K3's 16-bit guard route to K3w, decided
+    before any launch, and K3w gives the plain version's scores."""
+    from chip_smoke import smith_waterman_inputs
+
+    reads, windows = (torch.from_numpy(x).to(cuda) for x in
+                      smith_waterman_inputs(n=64, L=L, W=W))
     before = dict(kernels.launch_counts)
-    with pytest.raises(ValueError):
-        realign.smith_waterman_scores(reads, windows, *params)
+    assert kernels.sw_route(reads, windows, *params) == "smith_waterman_wide"
     assert kernels.launch_counts == before
+    got = realign.smith_waterman_scores(reads, windows, *params)
+    assert kernels.launch_counts == dict(
+        before, smith_waterman_wide=before["smith_waterman_wide"] + 1)
+    assert torch.equal(got, realign.smith_waterman_scores_plain(
+        reads, windows, *params))
 
 
 # a byte above code 4 in a read or a window: K3 reads code bit 2 as PAD and
-# ships window codes in 3 bits, so smith_waterman refuses such a byte
+# ships window codes in 3 bits, so such a batch routes to K3w, which
+# compares whole bytes as the plain version does
 @pytest.mark.cuda
 @pytest.mark.parametrize("where,value", [("reads", 5), ("windows", 16)])
 def test_smith_waterman_kernel_refuses_bytes_above_code_4(cuda, where,
@@ -151,10 +160,15 @@ def test_smith_waterman_kernel_refuses_bytes_above_code_4(cuda, where,
     reads = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
     windows = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
     (reads if where == "reads" else windows)[2, 7] = value
+    reads[3, 10:20] = windows[3, 30:40] = value
     before = dict(kernels.launch_counts)
-    with pytest.raises(ValueError, match="codes 0-4"):
-        realign.smith_waterman_scores(reads, windows)
+    assert kernels.sw_route(reads, windows) == "smith_waterman_wide"
     assert kernels.launch_counts == before
+    got = realign.smith_waterman_scores(reads, windows)
+    assert kernels.launch_counts == dict(
+        before, smith_waterman_wide=before["smith_waterman_wide"] + 1)
+    assert torch.equal(got, realign.smith_waterman_scores_plain(reads,
+                                                                windows))
 
 
 # rows past the packed counters' 3,072 codes (the three-counter kernel),
@@ -265,8 +279,9 @@ def test_mxu_kmer_screen_kernel_takes_rows_in_turn(cuda, L):
 @pytest.mark.cuda
 def test_mxu_kmer_screen_kernel_refusals(cuda):
     """K4's wrapper refuses a wrong dtype, device, layout or row count
-    before launch, and launches nothing for no rows; the op refuses k != 8
-    on the card."""
+    before launch, and launches nothing for no rows; k != 8 routes to the
+    any-k kernel (decided before launch) and k < 1, which the JAX op
+    cannot take either, is refused."""
     reads = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
     windows = torch.zeros(4, 256, dtype=torch.uint8, device=cuda)
     out = torch.zeros(4, dtype=torch.uint8, device=cuda)
@@ -281,33 +296,172 @@ def test_mxu_kmer_screen_kernel_refusals(cuda):
             ((reads, windows, out[:3]), "same rows")):
         with pytest.raises(ValueError, match=match):
             kernels.launch_mxu_kmer_screen(*args)
-    with pytest.raises(ValueError, match="8-mers"):
-        realign.mxu_shared_kmer_mask(reads, windows, k=7)
+    with pytest.raises(ValueError, match="1 <= k"):
+        realign.mxu_shared_kmer_mask(reads, windows, k=0)
     assert kernels.launch_counts == before
     assert realign.mxu_shared_kmer_mask(reads[:0], windows[:0]).shape == (0,)
     assert kernels.launch_counts == before
+    assert kernels.mxu_route(7) == "mxu_kmer_screen_any_k"
+    assert kernels.launch_counts == before
+    reads[1, 3:10] = windows[1, 50:57] = torch.tensor([0, 1, 2, 3, 3, 2, 1])
+    got = realign.mxu_shared_kmer_mask(reads, windows, k=7)
+    assert kernels.launch_counts == dict(
+        before, mxu_kmer_screen_any_k=before["mxu_kmer_screen_any_k"] + 1)
+    assert torch.equal(got, realign.mxu_shared_kmer_mask_plain(reads,
+                                                               windows, 7))
+
+
+# K3w at reduced counts of chip_smoke.SWW_CASES' shapes: reads of 640
+# (the 600 bp ReadBatch width) and 1,024 (two tiles) and 5,000 (ten), bytes
+# 5-255, h past 2^13, match - gap outside a byte, a positive gap; odd N
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,W,params,above_4", [
+    (513, 640, 256, (1, -1, -1), False),
+    (64, 1024, 2048, (1, -1, -1), False),
+    (3, 5000, 300, (1, -1, -1), True),
+    (333, 256, 256, (1, -1, -1), True),
+    (8, 4608, 4608, (2, -3, -5), False),
+    (257, 256, 256, (1, -1, -200), False),
+    (31, 600, 90, (3, -2, 2), False),
+])
+def test_smith_waterman_wide_kernel_matches_plain(cuda, N, L, W, params,
+                                                  above_4):
+    from chip_smoke import smith_waterman_inputs
+
+    reads, windows = (torch.from_numpy(x).to(cuda) for x in
+                      smith_waterman_inputs(n=N, L=L, W=W, above_4=above_4))
+    assert kernels.sw_route(reads, windows, *params) == "smith_waterman_wide"
+    before = dict(kernels.launch_counts)
+    got = realign.smith_waterman_scores(reads, windows, *params)
+    assert kernels.launch_counts == dict(
+        before, smith_waterman_wide=before["smith_waterman_wide"] + 1)
+    want = realign.smith_waterman_scores_plain(reads, windows, *params)
+    assert torch.equal(got, want)
+    assert int(want.max()) > 8
+    if params == (2, -3, -5):
+        assert int(want.max()) >= 1 << 13
+
+
+# the any-k kernel at chip_smoke's k on the bench rows (first 64) and case
+# (d), on the no-hit rows (the full product), at k = 40 and 80 (more
+# k-steps than its B images hold) and on 4,096 mixed rows (each block
+# takes rows in turn)
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,N,k", [
+    ("bench", 64, 1), ("bench", 64, 4), ("bench", 64, 12), ("bench", 64, 16),
+    ("bench", 64, 31), ("odd", 333, 1), ("odd", 333, 4), ("odd", 333, 12),
+    ("odd", 333, 16), ("odd", 333, 31), ("no_hit", 16, 12),
+    ("pad", 64, 16), ("bench", 16, 40), ("bench", 16, 80),
+    ("mixed", 4096, 12)])
+def test_mxu_kmer_screen_any_k_matches_plain(cuda, case, N, k):
+    from chip_smoke import mxu_inputs
+
+    reads, windows = (torch.from_numpy(x[:N].copy()).to(cuda)
+                      for x in mxu_inputs(case, k=k))
+    before = dict(kernels.launch_counts)
+    got = realign.mxu_shared_kmer_mask(reads, windows, k)
+    assert kernels.launch_counts == dict(
+        before, mxu_kmer_screen_any_k=before["mxu_kmer_screen_any_k"] + 1)
+    want = realign.mxu_shared_kmer_mask_plain(reads, windows, k)
+    assert torch.equal(got, want)
+    if case == "no_hit":
+        assert not bool(want.any())
+    elif case in ("odd", "mixed", "pad") and k >= 8:
+        # at k < 8 chance hits decide every odd row
+        assert 0 < int(want.sum()) < N
+    out = torch.empty(N, dtype=torch.uint8, device=cuda)
+    for _ in range(3):
+        out.fill_(2)
+        kernels.launch_mxu_kmer_screen(reads, windows, out, k)
+        assert torch.equal(out, want.to(torch.uint8))
+
+
+# k past 2,048: one tile a group, the largest dot tested against k
+@pytest.mark.cuda
+def test_mxu_kmer_screen_any_k_one_tile_groups(cuda):
+    from chip_smoke import mxu_inputs
+
+    reads, windows = (torch.from_numpy(x).to(cuda) for x in
+                      mxu_inputs("mixed", N=16, L=2100, W=2120, k=2049))
+    got = realign.mxu_shared_kmer_mask(reads, windows, 2049)
+    want = realign.mxu_shared_kmer_mask_plain(reads, windows, 2049)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < 16
+
+
+# K1 on rows whose min_score an unseeded walk can reach, next to rows that
+# take the seed lookup, at chip_smoke's shape and at the main shape's width
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,W", [(512, 2048), (64, 8192)])
+def test_accept_wavefront_kernel_every_diagonal(cuda, N, W):
+    from chip_smoke import accept_low_min_score_inputs
+
+    reads, windows, params = (torch.from_numpy(x).to(cuda) for x in
+                              accept_low_min_score_inputs(N=N, W=W))
+    walks_all = kernels.accept_walks_all(params, reads.shape[1])
+    assert 0 < int(walks_all.sum()) < N
+    got = realign.accept_wavefront(reads, windows, params)
+    want = realign.accept_wavefront_plain(reads, windows,
+                                          *params.unbind(dim=1))
+    assert torch.equal(got, want)
+    assert 0 < int(want[walks_all].sum()) < int(walks_all.sum())
+
+
+# more rows than a grid dimension holds (65,535): rows on y and z
+@pytest.mark.cuda
+def test_accept_wavefront_kernel_many_rows(cuda):
+    from chip_smoke import accept_many_rows_inputs
+
+    reads, windows, params = (torch.from_numpy(x).to(cuda) for x in
+                              accept_many_rows_inputs())
+    before = kernels.launch_counts["accept_wavefront"]
+    got = realign.accept_wavefront(reads, windows, params)
+    assert kernels.launch_counts["accept_wavefront"] == before + 1
+    want = realign.accept_wavefront_plain(reads, windows,
+                                          *params.unbind(dim=1))
+    assert torch.equal(got, want)
+    assert 0 < int(want[65535:].sum()) < 70000 - 65535
+
+
+# the data-parallel realign step on 600 bp reads (a ReadBatch 640 wide, so
+# K3w), at 1 and 4 shards on the card, against the CPU
+@pytest.mark.cuda
+def test_sharded_realign_step_on_600bp_reads(cuda):
+    from chip_smoke import realign_600bp
+
+    result = realign_600bp(256, cpu=True)
+    # one launch a shard: 1 + 4, and none of K3
+    assert result["launches"]["smith_waterman_wide"] == 5
+    assert result["launches"]["smith_waterman"] == 0
 
 
 def test_smith_waterman_wrapper_checks_its_guard_before_launch(monkeypatch):
-    """The wrapper refuses shapes and scores past K3's 16-bit guard before
-    anything is launched (a CUDA-free check: the tensor checks are stubbed
-    and a launch would fail the test)."""
-    def no_launch(*args):
-        raise AssertionError("launched past the guard")
-
+    """Shapes and scores past K3's 16-bit guard: K3's own launcher still
+    refuses them before launch, and smith_waterman routes them to K3w
+    (sw_route, from shapes and scores alone) before its one launch, K3w's
+    (a CUDA-free check: the tensor checks are stubbed and the launches
+    recorded)."""
+    launched = []
     monkeypatch.setattr(kernels, "_require", lambda *args: None)
-    monkeypatch.setattr(kernels, "_launch", no_launch)
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda name, *args: launched.append(name))
     out = torch.zeros(2, dtype=torch.int32)
     for L, W, params in ((513, 64, (1, -1, -1)), (512, 64, (16, -1, -1)),
                          (64, 64, (1, -1, -200))):
+        reads = torch.zeros(2, L, dtype=torch.uint8)
+        windows = torch.zeros(2, W, dtype=torch.uint8)
         with pytest.raises(ValueError):
-            kernels.launch_smith_waterman(
-                torch.zeros(2, L, dtype=torch.uint8),
-                torch.zeros(2, W, dtype=torch.uint8), out, *params)
-    with pytest.raises(AssertionError, match="launched"):
-        kernels.launch_smith_waterman(torch.zeros(2, 256, dtype=torch.uint8),
-                                      torch.zeros(2, 256, dtype=torch.uint8),
-                                      out)
+            kernels.launch_smith_waterman(reads, windows, out, *params)
+        assert launched == []
+        assert kernels.sw_route(reads, windows, *params) == \
+            "smith_waterman_wide"
+        kernels.smith_waterman(reads, windows, *params)
+        assert launched == ["smith_waterman_wide"]
+        launched.clear()
+    kernels.launch_smith_waterman(torch.zeros(2, 256, dtype=torch.uint8),
+                                  torch.zeros(2, 256, dtype=torch.uint8),
+                                  out)
+    assert launched == ["smith_waterman"]
 
 
 @pytest.mark.parametrize("where,value,ok", [
@@ -316,8 +470,9 @@ def test_smith_waterman_wrapper_checks_its_guard_before_launch(monkeypatch):
 ])
 def test_smith_waterman_codes_guard(where, value, ok):
     """K3 takes codes 0-4: sw_codes_guard passes those and refuses any
-    larger byte, and smith_waterman refuses it before its tensor checks and
-    its launch (a CUDA-free check on CPU tensors)."""
+    larger byte, and sw_route sends a batch holding one to K3w instead,
+    without a launch (a CUDA-free check on CPU tensors: smith_waterman then
+    reaches the chosen kernel's tensor checks, which refuse CPU tensors)."""
     reads = torch.randint(0, 5, (3, 40), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(value))
     windows = torch.randint(0, 5, (3, 70), dtype=torch.uint8,
@@ -326,12 +481,13 @@ def test_smith_waterman_codes_guard(where, value, ok):
     before = dict(kernels.launch_counts)
     if ok:
         kernels.sw_codes_guard(reads, windows)
-        with pytest.raises(ValueError, match="must be a CUDA tensor"):
-            kernels.smith_waterman(reads, windows)
     else:
-        for call in (kernels.sw_codes_guard, kernels.smith_waterman):
-            with pytest.raises(ValueError, match="codes 0-4"):
-                call(reads, windows)
+        with pytest.raises(ValueError, match="codes 0-4"):
+            kernels.sw_codes_guard(reads, windows)
+    assert kernels.sw_route(reads, windows) == (
+        "smith_waterman" if ok else "smith_waterman_wide")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernels.smith_waterman(reads, windows)
     kernels.sw_codes_guard(reads[:0], windows[:0])  # empty inputs pass
     assert kernels.launch_counts == before
 
@@ -345,6 +501,8 @@ _SW_ARGS = (torch.zeros(2, 8, dtype=torch.uint8),
             torch.zeros(2, 16, dtype=torch.uint8))
 _MK_ARGS = (torch.zeros(2, 20, dtype=torch.uint8),
             torch.zeros(2, 64, dtype=torch.uint8))
+_SWW_ARGS = (torch.zeros(2, 600, dtype=torch.uint8),
+             torch.zeros(2, 16, dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("name,args", [
@@ -359,6 +517,13 @@ _MK_ARGS = (torch.zeros(2, 20, dtype=torch.uint8),
     ("mxu_kmer_screen", _MK_ARGS),
     ("launch_mxu_kmer_screen",
      _MK_ARGS + (torch.zeros(2, dtype=torch.uint8),)),
+    ("smith_waterman", _SWW_ARGS),
+    ("launch_smith_waterman_wide",
+     _SWW_ARGS + (torch.zeros(2, dtype=torch.int32),
+                  torch.zeros(2, 16, dtype=torch.int32))),
+    ("mxu_kmer_screen", _MK_ARGS + (12,)),
+    ("launch_mxu_kmer_screen",
+     _MK_ARGS + (torch.zeros(2, dtype=torch.uint8), 3)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(name, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach it

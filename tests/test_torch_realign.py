@@ -276,23 +276,40 @@ def test_accept_pairs_streams_several_batches():
     np.testing.assert_array_equal(got, np.tile(got[:len(reads)], 3))
 
 
-def test_accept_pairs_refuses_a_negative_min_score():
-    """K1 walks only the diagonals a seed names, which is exact only while
-    min_score is above what an unseeded walk can score (read_len - 2^20):
-    on a CUDA device accept_pairs refuses a lower one before it builds a
-    row. The plain version walks every diagonal, so on the CPU any
-    min_score answers as the JAX package does."""
+def test_accept_pairs_refuses_a_negative_min_score(monkeypatch):
+    """accept_pairs no longer refuses a min_score <= read_len - 2^20 on a
+    CUDA device: it builds the rows as for any min_score, and K1 decides
+    per row, from params, to walk every diagonal of such a row (an
+    unseeded walk may accept there) and to take the seed lookup elsewhere.
+    Here the rows reach accept_wavefront before any launch, with that
+    route, and the answer is the JAX package's, down to -2^20 + 1."""
+    from arriba_tpu_torch import kernels
+
     reads, windows, min_scores = _pairs_bounds()
-    low = [-(2 ** 20)] + list(min_scores[1:])
-    with pytest.raises(ValueError, match="on a CUDA device"):
-        realign.accept_pairs(reads, windows, low,
-                             device=torch.device("cuda"))
-    for first in (-1, -(2 ** 20) + 1):
+    seen = []
+    inner = realign.accept_wavefront
+
+    def recording(r, w, params):
+        seen.append((r.shape[1], params.clone()))
+        return inner(r, w, params)
+
+    monkeypatch.setattr(realign, "accept_wavefront", recording)
+    before = dict(kernels.launch_counts)
+    for first in (-1, -(2 ** 20) + 1, -(2 ** 20)):
+        seen.clear()
         scores = [first] + list(min_scores[1:])
         got = realign.accept_pairs(reads, windows, scores, device=CPU)
         want = jax_realign.accept_pairs(reads, windows, scores)
         np.testing.assert_array_equal(got, want)
         assert got[0]
+        L, params = seen[0]
+        walks_all = kernels.accept_walks_all(params, L)
+        read_len = len(reads[0])
+        # the first read's rows (forward and reverse complement) are the
+        # batch's first; no other read has a min_score that low
+        assert walks_all[:2].tolist() == [first <= read_len - 2 ** 20] * 2
+        assert not walks_all[2:].any()
+    assert kernels.launch_counts == before
 
 
 def _plain_dp_scores(reads, windows):
