@@ -6,16 +6,19 @@ launches on PyTorch's current stream into an output the caller allocated,
 and raises if the launch returned a CUDA error. It adds one to
 ``launch_counts[name]`` where it launches, and nowhere else, so a run can
 show that its main path went through the kernel; a kernel with a second
-variant counts it under its own name (``smith_waterman_wide``,
-``mxu_kmer_screen_any_k``). The value ranges of the row lengths are checked
-on the host where the callers build them; the kernels clamp those lengths
-to their rows, so no value can make them read outside their inputs.
+variant counts it under its own name (``smith_waterman_wide16``,
+``smith_waterman_wide``, ``mxu_kmer_screen_any_k``). The value ranges of
+the row lengths are checked on the host where the callers build them; the
+kernels clamp those lengths to their rows, so no value can make them read
+outside their inputs.
 
 The card answers every input the JAX ops answer. Where one kernel cannot
 carry an input exactly, the wrapper routes it to another hand kernel
 before launch, from shapes, parameters and the byte range: K3's 16-bit
-pairs take what passes ``sw_guard`` and ``sw_codes_guard``, and K3w
-(32-bit lanes, any L, any byte) the rest (``sw_route``); K4 takes k = 8
+pairs take what passes ``sw_guard`` and ``sw_codes_guard``; K3w, tiled
+over the read, takes reads past 512 positions in the same 16-bit pairs
+where only the length stops K3, and in 32-bit lanes (any byte) the rest
+(``sw_route``; each route names its ``launch_*`` function); K4 takes k = 8
 and its any-k kernel every other k; K1 decides per row, inside the
 kernel, between its seed lookup and a walk of every diagonal. What is
 still refused is what would wrap the JAX op's own int32 arithmetic
@@ -30,8 +33,9 @@ in ``ops/``.
 from __future__ import annotations
 
 launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
-                 "smith_waterman": 0, "smith_waterman_wide": 0,
-                 "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0}
+                 "smith_waterman": 0, "smith_waterman_wide16": 0,
+                 "smith_waterman_wide": 0, "mxu_kmer_screen": 0,
+                 "mxu_kmer_screen_any_k": 0}
 
 
 def reset_launch_counts() -> None:
@@ -154,14 +158,12 @@ SW_MAX_L = 512
 SW_MAX_SCORE = (1 << 13) - 1
 
 
-def sw_refusal(L: int, W: int, match: int, mismatch: int, gap: int) -> str:
-    """'' when K3 carries these shapes and scores exactly (L <= 512, every
-    h below 2^13, match - gap and mismatch - gap in a signed byte, |gap| <=
-    2^14), else the reason it does not. From shapes and parameters
-    alone."""
-    if L > SW_MAX_L:
-        return (f"smith_waterman takes reads of at most {SW_MAX_L} "
-                f"positions, got {L}")
+def sw_score_refusal(L: int, W: int, match: int, mismatch: int,
+                     gap: int) -> str:
+    """'' when 16-bit pair lanes carry these scores exactly at reads L
+    wide against windows W wide (every h below 2^13, match - gap and
+    mismatch - gap in a signed byte, |gap| <= 2^14), else the reason they
+    do not. From shapes and parameters alone."""
     if max(match, mismatch, 0) * L + max(gap, 0) * (L + W) > SW_MAX_SCORE:
         return "scores could reach 2^13, which K3's 16-bit lanes do not carry"
     if not (-128 <= match - gap <= 127 and -128 <= mismatch - gap <= 127
@@ -169,6 +171,16 @@ def sw_refusal(L: int, W: int, match: int, mismatch: int, gap: int) -> str:
         return ("match - gap and mismatch - gap must lie in [-128, 127] and "
                 "|gap| <= 2^14 for K3")
     return ""
+
+
+def sw_refusal(L: int, W: int, match: int, mismatch: int, gap: int) -> str:
+    """'' when K3 carries these shapes and scores exactly (L <= 512 and
+    sw_score_refusal finds nothing), else the reason it does not. From
+    shapes and parameters alone."""
+    if L > SW_MAX_L:
+        return (f"smith_waterman takes reads of at most {SW_MAX_L} "
+                f"positions, got {L}")
+    return sw_score_refusal(L, W, match, mismatch, gap)
 
 
 def sw_guard(L: int, W: int, match: int, mismatch: int, gap: int) -> None:
@@ -220,19 +232,20 @@ def sw_wide_guard(L: int, W: int, match: int, mismatch: int,
 
 def sw_route(reads, windows, match: int = 1, mismatch: int = -1,
              gap: int = -1) -> str:
-    """The kernel smith_waterman launches for these inputs: "smith_waterman"
-    (K3) where sw_refusal finds nothing and every byte is a code
-    0-4, else "smith_waterman_wide" (K3w). Launches nothing; the bytes are
-    read (one reduction, which waits for the card) only when the shapes and
-    scores fit K3."""
+    """The kernel smith_waterman launches for these inputs, where
+    sw_score_refusal finds nothing and every byte is a code 0-4:
+    "smith_waterman" (K3) for L <= 512, "smith_waterman_wide16" (K3w's
+    16-bit pairs) past it; for any other input "smith_waterman_wide" (K3w's
+    32-bit lanes). Launches nothing; the bytes are read (one reduction,
+    which waits for the card) only when the scores fit 16 bits."""
     L, W = reads.shape[1], windows.shape[1]
-    if sw_refusal(L, W, match, mismatch, gap):
+    if sw_score_refusal(L, W, match, mismatch, gap):
         return "smith_waterman_wide"
     try:
         sw_codes_guard(reads, windows)
     except ValueError:
         return "smith_waterman_wide"
-    return "smith_waterman"
+    return "smith_waterman" if L <= SW_MAX_L else "smith_waterman_wide16"
 
 
 def launch_smith_waterman(reads, windows, out, match: int = 1,
@@ -256,22 +269,27 @@ def launch_smith_waterman(reads, windows, out, match: int = 1,
             out.data_ptr(), n, L, W, match, mismatch, gap)
 
 
-def sw_wide_carry(reads, windows):
-    """K3w's carry rows, int32 [N, W], where a read spans more than one
-    tile (L > 512); an empty tensor otherwise."""
+def _carry_rows(n: int, route: str) -> int:
+    return (n + 1) // 2 if route == "smith_waterman_wide16" else n
+
+
+def sw_wide_carry(reads, windows, route: str = "smith_waterman_wide"):
+    """K3w's carry rows where a read can span more than one tile (L > 512):
+    int32 [N, W] for the 32-bit lanes, [ceil(N / 2), W] for the 16-bit
+    pairs (route "smith_waterman_wide16"); an empty tensor otherwise."""
     import torch
 
     n, L = reads.shape
     W = windows.shape[1] if L > SW_MAX_L else 0
-    return torch.empty((n, W), dtype=torch.int32, device=reads.device)
+    return torch.empty((_carry_rows(n, route), W), dtype=torch.int32,
+                       device=reads.device)
 
 
-def launch_smith_waterman_wide(reads, windows, out, carry, match: int = 1,
-                               mismatch: int = -1, gap: int = -1) -> None:
-    """K3w (csrc/smith_waterman_wide.cu) into out, int32 [N]: the best
-    local alignment score of each (read, window) row, in int32 lanes, for
-    any L and W and any bytes (PAD 4). carry is sw_wide_carry's scratch.
-    The shapes and scores pass sw_wide_guard."""
+def _launch_wide(route: str, reads, windows, out, carry, match: int,
+                 mismatch: int, gap: int) -> None:
+    """Check K3w's arguments and its guard for the width route names
+    (sw_score_refusal for the 16-bit pairs, sw_wide_guard for the 32-bit
+    lanes), then launch it."""
     import torch
 
     _require(reads, "reads", torch.uint8, 2)
@@ -282,29 +300,59 @@ def launch_smith_waterman_wide(reads, windows, out, carry, match: int = 1,
     W = windows.shape[1]
     if windows.shape[0] != n or out.shape[0] != n:
         raise ValueError("reads, windows and out must have the same rows")
-    if L > SW_MAX_L and tuple(carry.shape) != (n, W):
-        raise ValueError("carry must be int32 [N, W] for reads past "
+    rows = _carry_rows(n, route)
+    if L > SW_MAX_L and tuple(carry.shape) != (rows, W):
+        raise ValueError(f"carry must be int32 [{rows}, {W}] for reads past "
                          f"{SW_MAX_L} positions")
-    sw_wide_guard(L, W, match, mismatch, gap)
-    _launch("smith_waterman_wide", reads.data_ptr(), windows.data_ptr(),
-            out.data_ptr(), carry.data_ptr(), n, L, W, match, mismatch, gap)
+    if route == "smith_waterman_wide16":
+        reason = sw_score_refusal(L, W, match, mismatch, gap)
+        if reason:
+            raise ValueError(reason)
+    else:
+        sw_wide_guard(L, W, match, mismatch, gap)
+    _launch(route, reads.data_ptr(), windows.data_ptr(), out.data_ptr(),
+            carry.data_ptr(), n, L, W, match, mismatch, gap)
+
+
+def launch_smith_waterman_wide16(reads, windows, out, carry,
+                                 match: int = 1, mismatch: int = -1,
+                                 gap: int = -1) -> None:
+    """K3w's 16-bit pairs (csrc/smith_waterman_wide.cu) into out, int32
+    [N]: the best local alignment score of each (read, window) row, two
+    rows a warp as K3 scores them, tiled over reads of any L. reads uint8
+    [N, L] and windows uint8 [N, W] must hold codes 0-4, both padded with
+    PAD_CODE (4): this launch does not read the bytes, smith_waterman
+    checks them (sw_route). carry is sw_wide_carry's scratch for this
+    route. The scores pass sw_score_refusal."""
+    _launch_wide("smith_waterman_wide16", reads, windows, out, carry, match,
+                 mismatch, gap)
+
+
+def launch_smith_waterman_wide(reads, windows, out, carry, match: int = 1,
+                               mismatch: int = -1, gap: int = -1) -> None:
+    """K3w's 32-bit lanes (csrc/smith_waterman_wide.cu) into out, int32
+    [N]: the best local alignment score of each (read, window) row, a row a
+    warp, for any L and W and any bytes (PAD 4). carry is sw_wide_carry's
+    scratch. The shapes and scores pass sw_wide_guard."""
+    _launch_wide("smith_waterman_wide", reads, windows, out, carry, match,
+                 mismatch, gap)
 
 
 def smith_waterman(reads, windows, match: int = 1, mismatch: int = -1,
                    gap: int = -1):
-    """K3 or K3w, as sw_route decides before launch: int32 [N] scores (see
-    launch_smith_waterman, launch_smith_waterman_wide). Raises ValueError,
-    before launch, only past sw_wide_guard."""
+    """K3 or one of K3w's widths, as sw_route decides before launch: int32
+    [N] scores (see launch_smith_waterman, launch_smith_waterman_wide16,
+    launch_smith_waterman_wide). Raises ValueError, before launch, only
+    past sw_wide_guard."""
     import torch
 
     route = sw_route(reads, windows, match, mismatch, gap)
     out = torch.empty(reads.shape[0], dtype=torch.int32, device=reads.device)
     if route == "smith_waterman":
         launch_smith_waterman(reads, windows, out, match, mismatch, gap)
-    else:
-        launch_smith_waterman_wide(reads, windows, out,
-                                   sw_wide_carry(reads, windows), match,
-                                   mismatch, gap)
+        return out
+    _launch_wide(route, reads, windows, out,
+                 sw_wide_carry(reads, windows, route), match, mismatch, gap)
     return out
 
 

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "smith_waterman_wide": ("arriba_smith_waterman_wide",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                             + [ctypes.c_void_p]),
+    "smith_waterman_wide16": ("arriba_smith_waterman_wide16",
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_void_p]),
     "mxu_kmer_screen": ("arriba_mxu_kmer_screen",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p]),
@@ -49,7 +52,8 @@ _SIGNATURES = {
                               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                               + [ctypes.c_void_p]),
 }
-_LIBRARIES = {"mxu_kmer_screen_any_k": "mxu_kmer_screen"}
+_LIBRARIES = {"mxu_kmer_screen_any_k": "mxu_kmer_screen",
+              "smith_waterman_wide16": "smith_waterman_wide"}
 
 _loaded: dict = {}
 

@@ -7,9 +7,10 @@
     python3 chip_smoke.py --k4-occupancy
 
 The second form only times one kernel (accept_wavefront, low_entropy,
-smith_waterman or mxu_kmer_screen at k = 8) built from other sources
-against this checkout's build (compare; K4's builds also go through its
-stress step);
+smith_waterman, smith_waterman_wide or mxu_kmer_screen at k = 8) built
+from other sources against this checkout's build (compare; K4's builds
+also go through its stress step; K3w's builds run the width the router
+picks, an older build without the 16-bit entry point its 32-bit one);
 a SOURCE is a csrc directory, such as an earlier commit's unpacked with
 ``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
@@ -38,9 +39,12 @@ printed):
    the first 64 bench rows and 200 on all 512, 50 on 4,096 mixed rows at
    one and at two slabs of read k-mers, every verdict checked
    (mxu_stress). Then what the wrappers route to a second kernel, or what
-   K1 used to refuse: K3w on SWW_CASES (the realign step's 600 bp shape,
-   65,536 x 640 x 256; 16,384 x 1,024 x 2,048; bytes 5-255; the scores
-   (2, -3, -5) past 2^13; match - gap outside a signed byte); K4's any-k
+   K1 used to refuse: K3w on SWW_CASES, each in the width the router
+   picks and the 16-bit ones also in 32-bit lanes (the realign step's own
+   600 bp reads, 65,536 x 640 x 256, and reads of 62-248 positions at that
+   shape, in 16-bit pairs; 16,384 x 1,024 x 2,048 in 16-bit pairs and with
+   bytes 5-255 in 32-bit lanes; bytes 5-255; the scores (2, -3, -5) past
+   2^13; match - gap outside a signed byte); K4's any-k
    kernel at k = 1, 4, 12, 16 and 31 (MXU_ANY_K) on the bench rows and on
    case (d); K1 on 512 x 192 x 2,048 rows of which half walk every
    diagonal (min_score -2^20 + 1 or read_len - 2^20) and on 70,000 rows of
@@ -78,14 +82,16 @@ printed):
    over the whole fusion table, the stats step), equal between the two and
    with the host fusion table; K3 must have launched in this phase. Then
    the realign step on random_read_batch(rng, 4096, 600), 640 wide, at 1
-   and 4 shards, equal to its plain arithmetic (realign_600bp): K3w must
-   have launched there.
+   and 4 shards, equal to its plain arithmetic (realign_600bp): K3w's
+   16-bit pairs must have launched there.
 6. K4's caller: realign.mxu_shared_kmer_mask on the bench rows, as the JAX
    package's bench calls its twin, equal to the sorted screen, and the
    bench's other number: the port's sorted screen (shared_kmer_mask, plain
    torch) timed on the same rows (mxu_path); the same op at each k of
-   MXU_ANY_K (mxu_any_k_path), and K1's op on 70,000 rows a quarter of
-   which walk every diagonal (accept_path).
+   MXU_ANY_K (mxu_any_k_path), K1's op on 70,000 rows a quarter of
+   which walk every diagonal (accept_path), and the Smith-Waterman op on
+   4,096 x 1,024 x 2,048 rows with bytes 5-255, which K3w's 32-bit lanes
+   score (sww_path).
 7. The cohort runner: python -m arriba_tpu_torch.parallel.cohort on the
    genome-scale sample listed three times, three workers on the one card
    under run C's environment with jax blocked; each worker's outputs equal
@@ -648,19 +654,47 @@ def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
 # launches a timed window of K2 or K3 holds, here and in compare
 K2_K3_BATCH = 10
 
-# K3w's phase-2 cases (smith_waterman_inputs): rows, L, W, (match,
-# mismatch, gap), bytes 5-255. The first is the data-parallel realign step
-# at 600 bp reads (a ReadBatch 640 wide against ref[:, :256]); then reads of
-# two 512-position tiles against 2,048-byte windows, bytes above code 4,
-# the scores (2, -3, -5) with h past 2^13 (reads of 4,608), and a gap that
-# puts match - gap outside a signed byte: each a batch K3 does not carry.
+# K3w's phase-2 cases: rows, L, W, (match, mismatch, gap), the inputs
+# (sww_inputs) and the width kernels.sw_route must pick. The first is the
+# data-parallel realign step's own inputs: random_read_batch(rng, 65536,
+# 600), reads of 600 positions in rows 640 wide, against ref[:, :256];
+# dp_600bp is that shape with smith_waterman_inputs' reads, 62-248
+# positions long (kept under its earlier name). Then reads of up to two
+# 512-position tiles against 2,048-byte windows, in 16-bit pairs and with
+# bytes above code 4 (the 32-bit tiles at scale); bytes above code 4; the
+# scores (2, -3, -5) with h past 2^13 (reads of 4,608); a gap that puts
+# match - gap outside a signed byte: each a batch K3 does not carry.
 SWW_CASES = {
-    "dp_600bp": (65536, 640, 256, (1, -1, -1), False),
-    "long": (16384, 1024, 2048, (1, -1, -1), False),
-    "bytes_above_4": (8192, 256, 256, (1, -1, -1), True),
-    "past_2_13": (128, 4608, 4608, (2, -3, -5), False),
-    "gap_past_a_byte": (8192, 256, 256, (1, -1, -200), False),
+    "reads_600": (65536, 640, 256, (1, -1, -1), "read_batch",
+                  "smith_waterman_wide16"),
+    "dp_600bp": (65536, 640, 256, (1, -1, -1), "codes",
+                 "smith_waterman_wide16"),
+    "long": (16384, 1024, 2048, (1, -1, -1), "codes",
+             "smith_waterman_wide16"),
+    "long_bytes": (16384, 1024, 2048, (1, -1, -1), "above_4",
+                   "smith_waterman_wide"),
+    "bytes_above_4": (8192, 256, 256, (1, -1, -1), "above_4",
+                      "smith_waterman_wide"),
+    "past_2_13": (128, 4608, 4608, (2, -3, -5), "codes",
+                  "smith_waterman_wide"),
+    "gap_past_a_byte": (8192, 256, 256, (1, -1, -200), "codes",
+                        "smith_waterman_wide"),
 }
+
+
+def sww_inputs(name: str):
+    """(reads, windows) uint8 of a SWW_CASES case: random_read_batch's
+    bases and ref[:, :256] ("read_batch"), or smith_waterman_inputs with
+    codes 0-4 ("codes") or bytes 5-255 ("above_4")."""
+    import numpy as np
+
+    from arriba_tpu_torch.ops.encode import random_read_batch
+
+    n, L, W, _, kind, _ = SWW_CASES[name]
+    if kind == "read_batch":
+        batch = random_read_batch(np.random.default_rng(5), n, 600)
+        return batch.bases, np.ascontiguousarray(batch.ref[:, :W])
+    return smith_waterman_inputs(n=n, L=L, W=W, above_4=kind == "above_4")
 
 
 def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
@@ -961,16 +995,22 @@ def check_mxu() -> dict:
             "cases": cases}
 
 
-def check_smith_waterman_wide() -> dict:
+def check_smith_waterman_wide() -> list:
     """K3w through realign.smith_waterman_scores against its plain version
-    on the card, exactly, on each case of SWW_CASES, each routed to K3w
-    before launch (kernels.sw_route), with each case's launch time (median
-    of 10 CUDA-event timed windows of 3 launches), its bound (every cell
-    whose read and window bytes are both not PAD, SWW_OPS_PER_CELL integer
-    operations each, against the bytes read and written once) and the
-    plain version's time (one call, after the comparison's). No PyTorch
-    call computes these scores: library_ms is null. Returns K3w's record,
-    the data-parallel step's shape (dp_600bp) its main case."""
+    on the card, exactly, on each case of SWW_CASES, each routed before
+    launch (kernels.sw_route) to the width the case names, with each case's
+    launch time in that width (median of 10 CUDA-event timed windows of 3
+    launches), its bound in that width (every cell whose read and window
+    bytes are both not PAD: SW_SLOTS_PER_CELL slots of the 32-bit integer
+    rate in the 16-bit pairs, SWW_OPS_PER_CELL integer operations in the
+    32-bit lanes, against the bytes read and written once), the 32-bit
+    bound too (for comparison with the 32-bit kernel's), and the plain
+    version's time (one call, after the comparison's). A case the 16-bit
+    pairs take is also
+    launched and timed in the 32-bit lanes (ms_32), equal to the plain
+    version. No PyTorch call computes these scores: library_ms is null.
+    Returns a record a width: the 16-bit pairs' main case the data-parallel
+    step's own inputs (reads_600), the 32-bit lanes' long_bytes."""
     import numpy as np
     import torch
 
@@ -978,14 +1018,15 @@ def check_smith_waterman_wide() -> dict:
     from arriba_tpu_torch.ops import realign
     from arriba_tpu_torch.ops.encode import PAD_CODE
 
-    cases = {}
-    for name, (n, L, W, params, above_4) in SWW_CASES.items():
-        reads, windows = smith_waterman_inputs(n=n, L=L, W=W,
-                                               above_4=above_4)
+    cases = {route: {} for route in ("smith_waterman_wide16",
+                                     "smith_waterman_wide")}
+    for name, (n, L, W, params, _, want_route) in SWW_CASES.items():
+        reads, windows = sww_inputs(name)
         r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
         route = kernels.sw_route(r, w, *params)
-        if route != "smith_waterman_wide":
-            raise SystemExit(f"K3w's case {name} routes to {route}")
+        if route != want_route:
+            raise SystemExit(f"K3w's case {name} routes to {route}, not "
+                             f"{want_route}")
         got = realign.smith_waterman_scores(r, w, *params)
         want = realign.smith_waterman_scores_plain(r, w, *params)
         err = int((got - want).abs().max())
@@ -999,34 +1040,57 @@ def check_smith_waterman_wide() -> dict:
             lambda: realign.smith_waterman_scores_plain(r, w, *params), 1,
             warm_up=False)
         out = torch.empty(n, dtype=torch.int32, device="cuda")
-        carry = kernels.sw_wide_carry(r, w)
-        ms = cuda_ms(lambda: kernels.launch_smith_waterman_wide(
-            r, w, out, carry, *params), 10, batch=3)
-        if not torch.equal(out, want):
-            raise SystemExit(f"K3w's timed launches disagree ({name})")
+        times = {}
+        for width in dict.fromkeys((route, "smith_waterman_wide")):
+            launch = getattr(kernels, f"launch_{width}")
+            carry = kernels.sw_wide_carry(r, w, width)
+            out.fill_(-1)
+            times[width] = cuda_ms(
+                lambda: launch(r, w, out, carry, *params), 10, batch=3)
+            if not torch.equal(out, want):
+                raise SystemExit(f"K3w's timed launches disagree ({name}, "
+                                 f"{width})")
+            del carry
+        ms, ms_32 = times[route], times["smith_waterman_wide"]
         read_len = (reads != PAD_CODE).sum(axis=1).astype(np.int64)
         win_len = (windows != PAD_CODE).sum(axis=1).astype(np.int64)
         cells = float((read_len * win_len).sum())
         n_bytes = reads.nbytes + windows.nbytes + 4 * n
-        bound_ms, bound_by = bound(n_bytes, cells * SWW_OPS_PER_CELL)
-        cases[name] = {"rows": n, "width": [L, W], "scores": list(params),
-                       "max_score": high, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "cells": cells}
-        log(f"K3w {name} ({n} x {L} x {W}, scores {params}): max score "
-            f"{high}, equal to the plain version; {ms:.4f} ms a launch, "
-            f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by},"
-            f" {bound_ms / ms:.1%})")
-        del r, w, out, carry, got, want
+        bound_32, _ = bound(n_bytes, cells * SWW_OPS_PER_CELL)
+        bound_ms, bound_by = bound(n_bytes, cells * (
+            SW_SLOTS_PER_CELL if route == "smith_waterman_wide16"
+            else SWW_OPS_PER_CELL))
+        cases[route][name] = {
+            "rows": n, "width": [L, W], "scores": list(params),
+            "route": route, "lanes": 16 if route != "smith_waterman_wide"
+            else 32, "max_score": high, "max_abs_err": err, "ms": ms,
+            "ms_32": ms_32, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_32_ms": bound_32, "cells": cells}
+        log(f"K3w {name} ({n} x {L} x {W}, scores {params}) -> {route}: "
+            f"max score {high}, equal to the plain version; {ms:.4f} ms a "
+            f"launch, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}, {bound_ms / ms:.1%}); 32-bit lanes {ms_32:.4f} "
+            f"ms against their bound {bound_32:.4f} ms "
+            f"({bound_32 / ms_32:.1%})")
+        del r, w, out, got, want
         torch.cuda.empty_cache()
-    main = cases["dp_600bp"]
-    return {"name": "smith_waterman_wide", "route": "cuda",
+    records = []
+    for route, main in (("smith_waterman_wide16", "reads_600"),
+                        ("smith_waterman_wide", "long_bytes")):
+        case = cases[route][main]
+        records.append({
+            "name": route, "route": "cuda",
             "source": "arriba_tpu_torch/kernels/csrc/smith_waterman_wide.cu",
             "replaces": "arriba_tpu/ops/realign.py:162",
-            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "cases": cases}
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in cases[route].values()),
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "ms_32": case["ms_32"], "bound_32_ms": case["bound_32_ms"],
+            "library_ms": None,
+            "cases": cases[route]})
+    return records
 
 
 # K4's any-k kernel: the k it is checked and timed at, each on the bench
@@ -1255,8 +1319,8 @@ def check_kernels() -> list:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
-    # K3w: what K3 does not carry
-    records.append(check_smith_waterman_wide())
+    # K3w, in 16-bit pairs and in 32-bit lanes: what K3 does not carry
+    records.extend(check_smith_waterman_wide())
 
     # K4: the one-hot 8-mer screen on the int8 tensor cores, then its
     # any-k kernel
@@ -1490,7 +1554,8 @@ def check_sharded(state, n: int) -> int:
 def realign_600bp(n_reads: int = 4096, cpu: bool = False) -> dict:
     """The data-parallel realign step (parallel.dp.sharded_realign_step) on
     random_read_batch(rng, n_reads, 600): a ReadBatch 640 wide, which K3
-    does not carry, against ref[:, :256], at 1 and 4 shards on the card,
+    does not carry (its reads are 600 positions long), against ref[:,
+    :256], at 1 and 4 shards on the card,
     equal to each other and to the step's plain arithmetic on the card (the
     8-mer screen and smith_waterman_scores_plain); with cpu, the 1-shard
     step on the CPU (the plain versions) too. Returns the kernel launches
@@ -1547,9 +1612,40 @@ def realign_600bp(n_reads: int = 4096, cpu: bool = False) -> dict:
         f"version (scores {int(scores.min())}..{int(scores.max())}); "
         f"{', '.join(f'{n} shard(s) {t:.3f} s' for n, t in seconds.items())}"
         f"; kernel launches {launches}")
-    if launches["smith_waterman_wide"] <= 0:
-        raise SystemExit("K3w never launched on the 600 bp realign step")
+    if launches["smith_waterman_wide16"] <= 0:
+        raise SystemExit("K3w's 16-bit pairs never launched on the 600 bp "
+                         "realign step")
     return {"launches": launches, "seconds": seconds}
+
+
+def sww_path(n: int = 4096) -> int:
+    """realign.smith_waterman_scores, the op itself, on a batch K3's 16
+    bits cannot carry: n rows of 1,024 read bytes against 2,048-byte
+    windows with bytes 5-255 (smith_waterman_inputs, above_4), as a caller
+    whose sequences hold such bytes would call it, equal to the plain
+    version on the card. Returns K3w's 32-bit launches, counted from 0."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    r, w = (torch.from_numpy(x).to("cuda") for x in smith_waterman_inputs(
+        n=n, L=1024, W=2048, above_4=True))
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    got = realign.smith_waterman_scores(r, w)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(kernels.launch_counts)
+    if not torch.equal(got, realign.smith_waterman_scores_plain(r, w)):
+        raise SystemExit("the Smith-Waterman op on bytes above 4 differs "
+                         "from the plain version")
+    log(f"Smith-Waterman op on {n} x 1024 x 2048 rows with bytes 5-255: "
+        f"equal to the plain version, {seconds:.3f} s; kernel launches "
+        f"{launches}")
+    if launches["smith_waterman_wide"] <= 0:
+        raise SystemExit("K3w's 32-bit lanes never launched on the op")
+    return launches["smith_waterman_wide"]
 
 
 # ---------------------------------------------------------------------------
@@ -1840,9 +1936,13 @@ def tool_phase(sample: pathlib.Path, fusions: pathlib.Path) -> None:
 def against_cases(kernel: str) -> dict:
     """The phase-2 inputs of a kernel for compare: {case: (arguments of its
     C entry point before the stream, setup run before each launch or None,
-    a check that the output equals the plain version's)}. K1: the main,
-    low-complexity and mixed batches; K2 and K3: their phase-2 batch; K4:
-    its phase-2 cases (MXU_CASES)."""
+    a check that the output equals the plain version's, and None or this
+    checkout's own (entry point, arguments) where they differ)}. K1: the
+    main, low-complexity and mixed batches; K2 and K3: their phase-2
+    batch; K4: its phase-2 cases (MXU_CASES); K3w: SWW_CASES, the other
+    build through its 32-bit entry point, this checkout through the width
+    sw_route picks, as does any other build that has that entry point (the
+    output set to -1 before each launch)."""
     import numpy as np
     import torch
 
@@ -1859,7 +1959,7 @@ def against_cases(kernel: str) -> dict:
             want = realign.accept_wavefront_plain(r, w, *p.unbind(dim=1))
             cases[name] = ((r, w, p, out, *r.shape, w.shape[1]), out.zero_,
                            lambda out=out, want=want: torch.equal(out != 0,
-                                                                  want))
+                                                                  want), None)
     elif kernel == "low_entropy":
         codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs()
         th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
@@ -1871,13 +1971,14 @@ def against_cases(kernel: str) -> dict:
             readfilters._unpack_codes(packed, codes.shape[1]),
             *meta.unbind(dim=1))
         cases["main"] = ((packed, meta, out, *packed.shape), None,
-                         lambda: torch.equal(out.view(torch.bool), want))
+                         lambda: torch.equal(out.view(torch.bool), want),
+                         None)
     elif kernel == "smith_waterman":
         r, w = (torch.from_numpy(x).to(cuda) for x in smith_waterman_inputs())
         out = torch.empty(len(r), dtype=torch.int32, device=cuda)
         want = realign.smith_waterman_scores_plain(r, w)
         cases["main"] = ((r, w, out, *r.shape, w.shape[1], 1, -1, -1), None,
-                         lambda: torch.equal(out, want))
+                         lambda: torch.equal(out, want), None)
     elif kernel == "mxu_kmer_screen":
         for name in MXU_CASES:
             r, w = (torch.from_numpy(x).to(cuda) for x in mxu_inputs(name))
@@ -1885,10 +1986,26 @@ def against_cases(kernel: str) -> dict:
             want = realign.mxu_shared_kmer_mask_plain(r, w)
             cases[name] = ((r, w, out, *r.shape, w.shape[1]), None,
                            lambda out=out, want=want: torch.equal(
-                               out.view(torch.bool), want))
+                               out.view(torch.bool), want), None)
+    elif kernel == "smith_waterman_wide":
+        from arriba_tpu_torch import kernels
+
+        for name, (n, L, W, params, _, _) in SWW_CASES.items():
+            r, w = (torch.from_numpy(x).to(cuda) for x in sww_inputs(name))
+            out = torch.empty(n, dtype=torch.int32, device=cuda)
+            want = realign.smith_waterman_scores_plain(r, w, *params)
+            route = kernels.sw_route(r, w, *params)
+            shape = (n, L, W, *params)
+            cases[name] = (
+                (r, w, out, kernels.sw_wide_carry(r, w), *shape),
+                lambda out=out: out.fill_(-1),
+                lambda out=out, want=want: torch.equal(out, want),
+                (route, (r, w, out, kernels.sw_wide_carry(r, w, route),
+                         *shape)))
     else:
         raise SystemExit(f"--against takes accept_wavefront, low_entropy, "
-                         f"smith_waterman or mxu_kmer_screen, not {kernel}")
+                         f"smith_waterman, smith_waterman_wide or "
+                         f"mxu_kmer_screen, not {kernel}")
     return cases
 
 
@@ -1896,7 +2013,8 @@ def compare(kernel: str, sources: list) -> None:
     """The kernel built from each source against this checkout's build, on
     its phase-2 inputs (against_cases). A source is a csrc directory whose
     <kernel>.cu has this checkout's C entry point, such as an earlier
-    commit's. Every build must give the plain version's output. Each case
+    commit's; where a case names this checkout's own entry point (K3w's
+    16-bit pairs), a source that has it runs it too. Every build must give the plain version's output. Each case
     times the launches (median of 20 windows of K2_K3_BATCH, or of single
     launches where the output is zeroed before each) in the order this
     checkout, the sources, the sources reversed, this checkout, and one
@@ -1922,22 +2040,34 @@ def compare(kernel: str, sources: list) -> None:
         for line in ptxas_lines(ptxas):
             log(f"built this checkout: {line}")
     entries = {"this checkout": build.load(kernel)[0]}
+    libraries = {}
     for source, target, proc in procs:
         report = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {source}:\n{report[-4000:]}")
         for line in ptxas_lines(report):
             log(f"built {source}: {line}")
-        entry = getattr(ctypes.CDLL(str(target)), symbol)
+        libraries[source] = ctypes.CDLL(str(target))
+        entry = getattr(libraries[source], symbol)
         entry.argtypes, entry.restype = argtypes, ctypes.c_int
         entries[source] = entry
 
-    def launcher(label, args):
+    def own_entry(label, name):
+        """The entry point `name` of a build, or None where it has none"""
+        if label == "this checkout":
+            return build.load(name)[0]
+        entry = getattr(libraries[label], build._SIGNATURES[name][0], None)
+        if entry is not None:
+            entry.argtypes = build._SIGNATURES[name][1]
+            entry.restype = ctypes.c_int
+        return entry
+
+    def launcher(label, args, entry=None):
         values = [x.data_ptr() if torch.is_tensor(x) else x for x in args]
+        entry = entry or entries[label]
 
         def launch():
-            code = entries[label](*values,
-                                  torch.cuda.current_stream().cuda_stream)
+            code = entry(*values, torch.cuda.current_stream().cuda_stream)
             if code != 0:
                 raise SystemExit(f"{kernel} from {label} failed to launch "
                                  f"({code})")
@@ -1953,10 +2083,14 @@ def compare(kernel: str, sources: list) -> None:
         result["stress_launches"] = {
             label: mxu_stress(stress_launch(label), label)
             for label in entries}
-    for name, (args, setup, check) in against_cases(kernel).items():
+    for name, (args, setup, check, own) in against_cases(kernel).items():
         times: dict = {label: [] for label in entries}
         for label in list(entries) + list(reversed(entries)):
-            launch = launcher(label, args)
+            entry = own_entry(label, own[0]) if own is not None else None
+            if entry is not None:
+                launch = launcher(label, own[1], entry)
+            else:
+                launch = launcher(label, args)
             if setup is not None:
                 setup()
             launch()
@@ -2162,15 +2296,16 @@ def main() -> int:
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
     # phase 5: the data-parallel path is K3's main path, and at 600 bp
-    # reads K3w's
+    # reads that of K3w's 16-bit pairs
     t0 = time.perf_counter()
     launches["smith_waterman"] = check_sharded(states[0], 4)
     del states[:]
-    launches["smith_waterman_wide"] = realign_600bp()["launches"][
-        "smith_waterman_wide"]
+    launches["smith_waterman_wide16"] = realign_600bp()["launches"][
+        "smith_waterman_wide16"]
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
-    # phase 6: the callers of K4 (at k = 8 and at other k) and of K1's op
+    # phase 6: the callers of K4 (at k = 8 and at other k), of K1's op and
+    # of K3w's 32-bit lanes
     t0 = time.perf_counter()
     launches["mxu_kmer_screen"], sorted_ms = mxu_path()
     for k, count in mxu_any_k_path().items():
@@ -2178,6 +2313,7 @@ def main() -> int:
     count = accept_path()
     for name in ("every_diagonal", "rows_70000"):
         launches[f"accept_wavefront {name}"] = count
+    launches["smith_waterman_wide"] = sww_path()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     # phase 7: the cohort runner, every worker on the card
@@ -2193,7 +2329,7 @@ def main() -> int:
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     where = {"accept_wavefront": "run A", "low_entropy": "run A",
-             "smith_waterman": "phase 5", "smith_waterman_wide": "phase 5"}
+             "smith_waterman": "phase 5", "smith_waterman_wide16": "phase 5"}
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "mxu_kmer_screen":
@@ -2209,11 +2345,12 @@ def main() -> int:
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     # K1 adds its every-diagonal bound, K4 its full-product bound and phase
-    # 6's time of the sorted screen, both their phase-2 cases
+    # 6's time of the sorted screen, K3w its 32-bit lanes' time and their
+    # bound, all their phase-2 cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "walk_all_bound_ms", "full_product_bound_ms", "sorted_screen_ms",
-            "cases")
+            "ms_32", "bound_32_ms", "cases")
     print(json.dumps({"kernels": [{key: record[key] for key in keys
                                    if key in record}
                                   for record in records]}))

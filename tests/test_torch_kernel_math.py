@@ -136,30 +136,43 @@ static void sw_pair(const uint8_t* a, const uint8_t* b, const uint8_t* wa,
     }
 }
 
-// K3w's warp over one row: the read in tiles of 32 S positions; per tile
-// every 128 steps each lane loads four window bytes and four carry entries
-// (sw_wide_up); lane 0 takes column t's byte and "up" from lane (t / 4) %
-// 32's chunk, lane k lane k-1's h and byte of the previous step (lanes run
-// from 31 down to 0), and lane 31 of a tile with a successor stores its h
-// into the carry row (sw_wide_store_column). The carry starts as garbage,
-// so a read before its write would show.
+// A warp's extent of a row of n bytes: the largest of its lanes'
+// (sw_wide_extent), as __reduce_max_sync takes it
+static int warp_extent(const uint8_t* row, int n) {
+    int extent = 0;
+    for (int k = 0; k < 32; ++k) {
+        extent = std::max(extent, arriba::sw_wide_extent(row, n, k));
+    }
+    return extent;
+}
+
+// K3w's 32-bit warp over one row, trimmed to the read's extent len_r and
+// the window's len_w (the window row W bytes in memory): the read in tiles
+// of 32 S positions; per tile every 128 steps each lane loads four window
+// bytes and four carry entries (sw_wide_up); lane 0 takes column t's byte
+// and "up" from lane (t / 4) % 32's chunk, lane k lane k-1's h and byte of
+// the previous step (lanes run from 31 down to 0), and lane 31 of a tile
+// with a successor stores its h into the carry row
+// (sw_wide_store_column). The carry starts as garbage, so a read before
+// its write would show.
 template <int S>
-static int32_t sww_row(const uint8_t* read, const uint8_t* win, int L, int W,
-                       int match, int mismatch, int gap) {
+static int32_t sww_row(const uint8_t* read, const uint8_t* win, int len_r,
+                       int len_w, int W, int match, int mismatch, int gap) {
     arriba::SwWideLane<S> lanes[32];
     int h[32], w[32], up4[32][4];
     uint32_t chunk[32];
     std::vector<int32_t> carry(W > 0 ? W : 1, 0x7eadbeef);
     for (int k = 0; k < 32; ++k) lanes[k].best = 0;
-    const int tiles = arriba::sw_wide_tiles(L, S);
+    const int tiles = arriba::sw_wide_tiles(len_r, S);
     for (int tile = 0; tile < tiles; ++tile) {
         const int first = tile * 32 * S;
         for (int k = 0; k < 32; ++k) {
-            arriba::sw_wide_tile_init<S>(&lanes[k], read, first + k * S, L);
+            arriba::sw_wide_tile_init<S>(&lanes[k], read, first + k * S,
+                                         len_r);
             h[k] = 0;
             w[k] = arriba::SWW_PAD;
         }
-        const int n_steps = arriba::sw_wide_steps(first, L, W, S);
+        const int n_steps = arriba::sw_wide_steps(first, len_r, len_w, S);
         const bool stores = tile + 1 < tiles;
         for (int base = 0; base < n_steps; base += arriba::SWW_CHUNK) {
             for (int k = 0; k < 32; ++k) {
@@ -168,7 +181,8 @@ static int32_t sww_row(const uint8_t* read, const uint8_t* win, int L, int W,
                     const int at = base + 4 * k + c;
                     const uint32_t byte = at < W ? win[at] : arriba::SWW_PAD;
                     chunk[k] |= byte << (8 * c);
-                    up4[k][c] = arriba::sw_wide_up(carry.data(), tile, at, W);
+                    up4[k][c] = arriba::sw_wide_up(carry.data(), tile, at,
+                                                   len_w);
                 }
             }
             const int steps = std::min(arriba::SWW_CHUNK, n_steps - base);
@@ -182,7 +196,7 @@ static int32_t sww_row(const uint8_t* read, const uint8_t* win, int L, int W,
                     h[k] = arriba::sw_wide_column<S>(&lanes[k], in_h, w[k],
                                                      match, mismatch, gap);
                     if (stores && k == 31) {
-                        const int j = arriba::sw_wide_store_column(t, W);
+                        const int j = arriba::sw_wide_store_column(t, len_w);
                         if (j >= 0) carry[j] = h[31];
                     }
                 }
@@ -192,6 +206,65 @@ static int32_t sww_row(const uint8_t* read, const uint8_t* win, int L, int W,
     int32_t best = 0;
     for (int k = 0; k < 32; ++k) best = std::max(best, lanes[k].best);
     return best;
+}
+
+// K3w's 16-bit warp over a pair of rows (b, wb null: the dummy row of an
+// odd batch), trimmed to the pair's extents: K3's sw_pair warp, tiled as
+// sww_row tiles, its steps in fours; lane 0 of a tile past the first takes
+// both rows' h above it from the carry (sw_wide16_lane0), and lane 31 of
+// a tile with a successor stores both rows' h (sw_wide16_carry). The
+// carry starts as garbage.
+template <int S>
+static void sww16_pair(const uint8_t* a, const uint8_t* b, const uint8_t* wa,
+                       const uint8_t* wb, int len_r, int len_w, int W,
+                       int match, int mismatch, int gap, int32_t* best_a,
+                       int32_t* best_b) {
+    const arriba::SwScores sc = arriba::sw_scores(match, mismatch, gap);
+    arriba::SwPair<S> lanes[32];
+    uint32_t words[32], chunk[32];
+    int up4[32][4];
+    std::vector<int32_t> carry(W > 0 ? W : 1, 0x7eadbeef);
+    for (int k = 0; k < 32; ++k) lanes[k].best = 0;
+    const int tiles = arriba::sw_wide_tiles(len_r, S);
+    for (int tile = 0; tile < tiles; ++tile) {
+        const int first = tile * 32 * S;
+        for (int k = 0; k < 32; ++k) {
+            arriba::sw_pair_tile_init<S>(&lanes[k], a, b, first + k * S,
+                                         len_r, sc.gap2);
+            words[k] = arriba::sw_window_word(arriba::SW_PAD, arriba::SW_PAD);
+        }
+        const int n_steps =
+            (arriba::sw_wide_steps(first, len_r, len_w, S) + 3) & ~3;
+        const bool stores = tile + 1 < tiles;
+        for (int t = 0; t < n_steps; ++t) {
+            if ((t & (arriba::SWW_CHUNK - 1)) == 0) {
+                for (int k = 0; k < 32; ++k) {
+                    chunk[k] = arriba::sw_window_pair(wa, wb, t + 4 * k, W);
+                    for (int c = 0; c < 4; ++c) {
+                        up4[k][c] = arriba::sw_wide_up(carry.data(), tile,
+                                                       t + 4 * k + c, len_w);
+                    }
+                }
+            }
+            const int k0 = (t >> 2) & 31;
+            const uint32_t up = tile > 0 ? (uint32_t)up4[k0][t & 3] : 0u;
+            for (int k = 31; k >= 0; --k) {
+                const uint32_t in =
+                    k == 0 ? arriba::sw_wide16_lane0(chunk[k0], t, up)
+                           : words[k - 1];
+                words[k] = arriba::sw_pair_column<S>(&lanes[k], in, sc);
+                if (stores && k == 31) {
+                    const int j = arriba::sw_wide_store_column(t, len_w);
+                    if (j >= 0) carry[j] = arriba::sw_wide16_carry(words[31]);
+                }
+            }
+        }
+    }
+    *best_a = *best_b = 0;
+    for (int k = 0; k < 32; ++k) {
+        *best_a = std::max(*best_a, (int)(lanes[k].best & 0xffffu));
+        *best_b = std::max(*best_b, (int)(lanes[k].best >> 16));
+    }
 }
 
 // K4's any-k kernel on its rows (mxu_kmer_screen_any_kernel): per row,
@@ -234,25 +307,78 @@ static void mk_any_tile(const uint32_t a[128][4], const uint8_t* image,
     }
 }
 
-extern "C" {
-
-// K3w's work per row, with the stripe its dispatch picks
-void sww_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
-              int n, int L, int W, int match, int mismatch, int gap) {
-    const int stripe = arriba::sw_wide_stripe(L);
-    auto row_fn = stripe == 1 ? sww_row<1> : stripe == 2 ? sww_row<2>
-                : stripe == 4 ? sww_row<4> : stripe == 8 ? sww_row<8>
-                : stripe == 12 ? sww_row<12> : sww_row<16>;
-    for (int row = 0; row < n; ++row) {
-        out[row] = row_fn(reads + (long)row * L, windows + (long)row * W, L,
-                          W, match, mismatch, gap);
+// K3w's work: each row (32-bit, wide16 = 0) or pair of rows (16-bit,
+// wide16 = 1) trimmed to its extents, with the stripe its warp picks from
+// the read's (sww_rows counts the rows whose stripe is past
+// sw_wide_stripe_cap(L), which the launch does not instantiate); an empty
+// read or window scores 0 without a tile
+template <int S>
+static void sww_warp(const uint8_t* reads, const uint8_t* windows,
+                     int32_t* out, int row, int n, int L, int W, int len_r,
+                     int len_w, int match, int mismatch, int gap,
+                     int wide16) {
+    const uint8_t* read = reads + (long)row * L;
+    const uint8_t* win = windows + (long)row * W;
+    if (!wide16) {
+        out[row] = sww_row<S>(read, win, len_r, len_w, W, match, mismatch,
+                              gap);
+        return;
     }
+    const bool has_b = row + 1 < n;
+    int32_t dummy;
+    sww16_pair<S>(read, has_b ? read + L : nullptr, win,
+                  has_b ? win + W : nullptr, len_r, len_w, W, match,
+                  mismatch, gap, &out[row], has_b ? &out[row + 1] : &dummy);
 }
 
-// K3w's plan for a read of L positions: stripe, tiles
-void sww_plan(int L, int32_t* out) {
-    out[0] = arriba::sw_wide_stripe(L);
-    out[1] = arriba::sw_wide_tiles(L, out[0]);
+static void (*const SWW_WARPS[])(const uint8_t*, const uint8_t*, int32_t*,
+                                 int, int, int, int, int, int, int, int, int,
+                                 int) = {
+    sww_warp<1>, sww_warp<2>, sww_warp<3>, sww_warp<4>, sww_warp<5>,
+    sww_warp<6>, sww_warp<7>, sww_warp<8>, sww_warp<9>, sww_warp<10>,
+    sww_warp<11>, sww_warp<12>, sww_warp<13>, sww_warp<14>, sww_warp<15>,
+    sww_warp<16>};
+
+extern "C" {
+
+int sww_rows(const uint8_t* reads, const uint8_t* windows, int32_t* out,
+             int n, int L, int W, int match, int mismatch, int gap,
+             int wide16) {
+    const int cap = arriba::sw_wide_stripe_cap(L);
+    int past_cap = 0;
+    for (int row = 0; row < n; row += wide16 ? 2 : 1) {
+        const int rows = wide16 && row + 1 < n ? 2 : 1;
+        int len_r = 0, len_w = 0;
+        for (int r = row; r < row + rows; ++r) {
+            len_r = std::max(len_r, warp_extent(reads + (long)r * L, L));
+            len_w = std::max(len_w, warp_extent(windows + (long)r * W, W));
+        }
+        if (len_r == 0 || len_w == 0) {
+            for (int r = row; r < row + rows; ++r) out[r] = 0;
+            continue;
+        }
+        const int stripe = arriba::sw_wide_stripe(len_r);
+        past_cap += stripe > cap;
+        SWW_WARPS[stripe - 1](reads, windows, out, row, n, L, W, len_r,
+                              len_w, match, mismatch, gap, wide16);
+    }
+    return past_cap;
+}
+
+// K3w's plan for a row (a read of L bytes, a window of W): the extents,
+// the stripe, the tiles, each tile's steps (at most 64), and the stripe cap
+// of the batch width
+void sww_plan(const uint8_t* read, const uint8_t* win, int L, int W,
+              int32_t* out) {
+    out[0] = warp_extent(read, L);
+    out[1] = warp_extent(win, W);
+    out[2] = arriba::sw_wide_stripe(out[0]);
+    out[3] = arriba::sw_wide_tiles(out[0], out[2]);
+    out[4] = arriba::sw_wide_stripe_cap(L);
+    for (int tile = 0; tile < out[3] && tile < 64; ++tile) {
+        out[5 + tile] = arriba::sw_wide_steps(tile * 32 * out[2], out[0],
+                                              out[1], out[2]);
+    }
 }
 
 // mk_plan's fields: k, ksteps, digit, groups, images, kchunk, bias, mask,
@@ -792,8 +918,9 @@ def harness(tmp_path_factory):
         ctypes.c_void_p]
     lib.mk_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     lib.mk_image_errors.argtypes = [ctypes.c_uint32]
-    lib.sww_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-    lib.sww_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.sww_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.sww_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     lib.mk_plan_fields.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.mk_any_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     return lib
@@ -1369,8 +1496,7 @@ def _sww_rows(seed, n, L, W, above_4):
     reads, windows = _sw_rows(seed, n, L, W)
     if L > 512:
         rng = np.random.default_rng(seed + 1)
-        need = -(-(-(-L // -(-L // 512))) // 32)      # sw_wide_stripe
-        edge = 32 * min(x for x in (1, 2, 4, 8, 12, 16) if x >= need)
+        edge = 32 * _stripe(L)      # a full read's first tile ends here
         for row in range(0, n - 2, 2):
             length = int(rng.integers(W // 2, W + 1))
             at = int(rng.integers(0, W - length + 1))
@@ -1390,19 +1516,47 @@ def _sww_rows(seed, n, L, W, above_4):
 
 
 PAD = 4
+WIDE16, WIDE = "smith_waterman_wide16", "smith_waterman_wide"
+# K3w's stripes (smith_waterman_wide.cuh SWW_STRIPE_MASK)
+STRIPES = (1, 2, 4, 6, 8, 10, 12, 14, 16)
 
-# (seed, rows, L, W, (match, mismatch, gap), bytes above 4), each a batch
-# K3 does not carry: reads past 512 positions (two tiles of 384 and of
-# 512), bytes above code 4, h past 2^13, match - gap outside a signed
-# byte, a positive gap
+
+def _sww_check(harness, reads, windows, params, route):
+    """kernels.sw_route's choice, then K3w's emulation (sww_rows) in the
+    32-bit lanes and, where the route is the 16-bit pairs, in those too,
+    each against the port's plain version, and the plain version against
+    the JAX package's jnp wavefront, exactly. Returns the plain scores."""
+    from arriba_tpu_torch import kernels
+
+    n, L = reads.shape
+    W = windows.shape[1]
+    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
+    assert kernels.sw_route(r, w, *params) == route
+    plain = realign.smith_waterman_scores(r, w, *params).numpy()
+    for wide16 in (0, 1) if route == WIDE16 else (0,):
+        native = np.full(n, -1, np.int32)
+        past_cap = harness.sww_rows(_ptr(reads), _ptr(windows), _ptr(native),
+                                    n, L, W, *params, wide16)
+        assert past_cap == 0
+        np.testing.assert_array_equal(native, plain)
+    xla = np.asarray(jax_realign.smith_waterman_scores(
+        jnp.asarray(reads), jnp.asarray(windows), *params))
+    np.testing.assert_array_equal(plain, xla)
+    return plain
+
+
+# (seed, rows, L, W, (match, mismatch, gap), bytes above 4, route), each a
+# batch K3 does not carry: reads past 512 positions (two tiles of 384 and
+# of 512), bytes above code 4, h past 2^13, match - gap outside a signed
+# byte, a positive gap; where only the length stops K3, K3w's 16-bit pairs
 _SWW_CASES = {
-    "L640": (11, 6, 640, 96, (1, -1, -1), False),
-    "L1024": (12, 4, 1024, 64, (1, -1, -1), False),
-    "L1100_above_4": (13, 4, 1100, 40, (1, -1, -1), True),
-    "bytes_above_4": (14, 8, 100, 120, (1, -1, -1), True),
-    "past_2_13": (15, 3, 640, 512, (20, -3, -5), False),
-    "gap_past_a_byte": (16, 6, 200, 150, (2, -3, -200), False),
-    "positive_gap": (17, 4, 600, 90, (3, -2, 2), False),
+    "L640": (11, 6, 640, 96, (1, -1, -1), False, WIDE16),
+    "L1024": (12, 4, 1024, 64, (1, -1, -1), False, WIDE16),
+    "L1100_above_4": (13, 4, 1100, 40, (1, -1, -1), True, WIDE),
+    "bytes_above_4": (14, 8, 100, 120, (1, -1, -1), True, WIDE),
+    "past_2_13": (15, 3, 640, 512, (20, -3, -5), False, WIDE),
+    "gap_past_a_byte": (16, 6, 200, 150, (2, -3, -200), False, WIDE),
+    "positive_gap": (17, 4, 600, 90, (3, -2, 2), False, WIDE16),
 }
 
 
@@ -1410,23 +1564,13 @@ _SWW_CASES = {
 def test_smith_waterman_wide_matches_plain_and_jax(harness, case):
     """K3w's cells and tile carry (sww_rows: the warp's lanes, the carry
     row written by lane 31 and read back chunk by chunk by the next tile's
-    lane 0) against the port's plain version and the JAX package's jnp
-    wavefront, exactly, on batches that kernels.sw_route sends to K3w; the
-    Pallas kernel (interpret mode) too on the first two."""
-    from arriba_tpu_torch import kernels
-
-    seed, n, L, W, params, above_4 = _SWW_CASES[case]
+    lane 0) in the width kernels.sw_route picks (and in 32-bit lanes too
+    where it picks the 16-bit pairs) against the port's plain version and
+    the JAX package's jnp wavefront, exactly; the Pallas kernel
+    (interpret mode) too on the first two."""
+    seed, n, L, W, params, above_4, route = _SWW_CASES[case]
     reads, windows = _sww_rows(seed, n, L, W, above_4)
-    r, w = torch.from_numpy(reads), torch.from_numpy(windows)
-    assert kernels.sw_route(r, w, *params) == "smith_waterman_wide"
-    native = np.zeros(n, np.int32)
-    harness.sww_rows(_ptr(reads), _ptr(windows), _ptr(native), n, L, W,
-                     *params)
-    plain = realign.smith_waterman_scores(r, w, *params).numpy()
-    np.testing.assert_array_equal(native, plain)
-    xla = np.asarray(jax_realign.smith_waterman_scores(
-        jnp.asarray(reads), jnp.asarray(windows), *params))
-    np.testing.assert_array_equal(plain, xla)
+    plain = _sww_check(harness, reads, windows, params, route)
     if case in ("L640", "L1024"):
         pallas = np.asarray(jax_realign.smith_waterman_scores_pallas(
             jnp.asarray(reads), jnp.asarray(windows), *params, block_n=n,
@@ -1437,20 +1581,169 @@ def test_smith_waterman_wide_matches_plain_and_jax(harness, case):
         assert plain.max() >= 1 << 13
 
 
-@pytest.mark.parametrize("L", [1, 31, 33, 512, 513, 640, 1024, 1025, 1100,
-                               5000])
+def _sww_trim_rows(seed, L, W, read_lengths, above_4=False):
+    """A row a read extent of read_lengths (PAD past it, a non-PAD byte at
+    it), against windows of extents that cycle through W, 0, 1, 31, 32,
+    33, W - 5 and W // 2 + 1 (capped at W); each read holds a copy of a
+    stretch of its window with one substitution, so that it scores; every
+    third row a PAD inside the read and one inside the window, which
+    trimming must keep; consecutive rows differ in length, so each 16-bit
+    pair does. With above_4, a tenth of the bytes are 5-255."""
+    rng = np.random.default_rng(seed)
+    n = len(read_lengths)
+    reads = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    windows = rng.integers(0, 4, (n, W)).astype(np.uint8)
+    if above_4:
+        for x in (reads, windows):
+            spots = rng.random(x.shape) < 0.1
+            x[spots] = rng.integers(5, 256, int(spots.sum()))
+    cycle = [W, 0, 1, 31, 32, 33, W - 5, W // 2 + 1]
+    for row, lr in enumerate(read_lengths):
+        lw = min(W, cycle[row % len(cycle)])
+        if min(lr, lw) > 8:
+            length = int(rng.integers(min(lr, lw) // 2, min(lr, lw) + 1))
+            at = int(rng.integers(0, lw - length + 1))
+            start = int(rng.integers(0, lr - length + 1))
+            reads[row, start:start + length] = windows[row, at:at + length]
+            reads[row, start + length // 2] = (
+                reads[row, start + length // 2] + 1) % 4
+        if row % 3 == 1:
+            if lr > 2:
+                reads[row, int(rng.integers(0, lr - 1))] = PAD
+            if lw > 2:
+                windows[row, int(rng.integers(0, lw - 1))] = PAD
+        reads[row, lr:] = PAD
+        windows[row, lw:] = PAD
+        if lr:
+            reads[row, lr - 1] = rng.integers(0, 4)
+        if lw:
+            windows[row, lw - 1] = rng.integers(0, 4)
+    return reads, windows
+
+
+# (seed, L, W, read extents, scores, bytes above 4, route): every stripe
+# the per-row choice can take (all in one tile; 10-16 in two and three),
+# empty reads and windows, an odd count; L = 513 around the tile edge; a
+# positive gap; bytes above 4 (32-bit lanes only)
+_SWW_TRIM_LENGTHS = [0, 1, 32, 33, 512, 513, 600, 768, 769, 1024, 1025,
+                     1100] + [32 * s - 10 for s in STRIPES]
+_SWW_TRIM_CASES = {
+    "every_stripe": (21, 1100, 160, _SWW_TRIM_LENGTHS, (1, -1, -1), False,
+                     WIDE16),
+    "L513": (22, 513, 100, [513, 512, 511, 480, 385, 384, 1, 0, 513, 257,
+                            256, 513], (1, -1, -1), False, WIDE16),
+    "positive_gap": (23, 600, 90, [600, 37, 599, 300, 0, 513, 64, 590],
+                     (3, -2, 2), False, WIDE16),
+    "above_4": (24, 700, 120, [700, 5, 650, 0, 400, 129, 699, 33, 512],
+                (1, -1, -1), True, WIDE),
+    "gap_past_a_byte": (25, 1100, 70, _SWW_TRIM_LENGTHS[::-2],
+                        (2, -3, -200), False, WIDE),
+}
+
+
+@pytest.mark.parametrize("case", list(_SWW_TRIM_CASES))
+def test_smith_waterman_wide_trims_each_row(harness, case):
+    """K3w trims each row to its own extents (sww_plan: the warp's
+    reduction over its lanes' runs finds 1 + the last non-PAD byte of the
+    read and of the window; a PAD inside either is kept) and runs only the
+    tiles and steps those need, with the stripe each row or pair picks;
+    exact against the plain version and the JAX wavefront in both widths
+    where the 16-bit pairs take the batch, with every stripe the batch
+    width allows taken once its rows' extents call for it."""
+    seed, L, W, lengths, params, above_4, route = _SWW_TRIM_CASES[case]
+    reads, windows = _sww_trim_rows(seed, L, W, lengths, above_4)
+    plan = np.zeros(5 + 64, np.int32)
+    stripes = set()
+    for row in range(len(lengths)):
+        harness.sww_plan(_ptr(reads[row]), _ptr(windows[row]), L, W,
+                         _ptr(plan))
+        assert int(plan[0]) == lengths[row]
+        assert windows[row, int(plan[1]):].tolist() == [PAD] * (W - plan[1])
+        if lengths[row]:
+            stripes.add(int(plan[2]))
+    plain = _sww_check(harness, reads, windows, params, route)
+    assert plain.max() > 8 and (plain[np.array(lengths) == 0] == 0).all()
+    if case == "every_stripe":
+        assert stripes == set(STRIPES)
+
+
+def _stripe(length):
+    """K3w's stripe for a read extent: the fewest tiles of at most 512
+    positions, then the smallest stripe of STRIPES that covers the read
+    in them."""
+    tiles = max(1, -(-length // 512))
+    return min(s for s in STRIPES if tiles * 32 * s >= length)
+
+
+def _stripe_cap(L):
+    """The largest stripe K3w's launch instantiates for a batch L wide: 4,
+    8 or 16, at least every extent's up to L."""
+    return 4 if L <= 128 else 8 if L <= 256 else 16
+
+
+@pytest.mark.parametrize("L", [1, 31, 33, 128, 129, 256, 257, 512, 513,
+                               640, 1024, 1025, 1100, 5000])
 def test_smith_waterman_wide_plan(harness, L):
-    """K3w's stripe and tiles: the fewest tiles of at most 512 positions,
-    the smallest stripe (1, 2, 4, 8, 12 or 16) that covers the read in
-    them, every tile but the last full."""
-    plan = np.zeros(2, np.int32)
-    harness.sww_plan(L, _ptr(plan))
-    stripe, tiles = (int(x) for x in plan)
-    assert stripe in (1, 2, 4, 8, 12, 16)
-    assert tiles == -(-L // 512)
-    assert (tiles - 1) * 32 * stripe < L <= tiles * 32 * stripe
-    smaller = [s for s in (1, 2, 4, 8, 12, 16) if s < stripe]
-    assert not smaller or tiles * 32 * smaller[-1] < L
+    """K3w's per-row plan (sww_plan) for reads of several extents in a
+    batch L wide: the extent is 1 + the last non-PAD byte (a PAD inside
+    kept); the stripe the fewest tiles of at most 512 positions, then the
+    smallest stripe of STRIPES that covers the read in them, every tile but
+    the last full; a full tile's steps the window's extent + 31, the last
+    tile's the window's extent + (held - 1) / stripe; and no stripe past
+    the cap the launch instantiates for width L (4, 8 or 16), which covers
+    every extent up to L."""
+    W = 300
+    cap = _stripe_cap(L)
+    assert max(_stripe(e) for e in range(1, L + 1)) <= cap
+    plan = np.zeros(5 + 64, np.int32)
+    rng = np.random.default_rng(L)
+    for extent, win_extent in ((L, W), (max(1, L // 3), 1), (1, W - 7),
+                               (max(1, L - 1), 150), (0, W), (L, 0)):
+        read = np.full(L, PAD, np.uint8)
+        read[:extent] = rng.integers(0, 4, extent)
+        if extent > 2:
+            read[extent // 2] = PAD
+        window = np.full(W, PAD, np.uint8)
+        window[:win_extent] = rng.integers(0, 4, win_extent)
+        harness.sww_plan(_ptr(read), _ptr(window), L, W, _ptr(plan))
+        got_r, got_w, stripe, tiles, got_cap = (int(x) for x in plan[:5])
+        assert (got_r, got_w, got_cap) == (extent, win_extent, cap)
+        if extent == 0:
+            assert tiles == 0
+            continue
+        assert stripe == _stripe(extent) <= cap
+        assert tiles == -(-extent // 512)
+        assert (tiles - 1) * 32 * stripe < extent <= tiles * 32 * stripe
+        held = extent - (tiles - 1) * 32 * stripe
+        assert plan[5:5 + tiles].tolist() == [win_extent + 31] * (tiles - 1) \
+            + [win_extent + (held - 1) // stripe]
+
+
+@pytest.mark.parametrize("L,W,params,byte,route", [
+    (513, 256, (1, -1, -1), 3, WIDE16),
+    (640, 256, (1, -1, -1), 4, WIDE16),
+    (5000, 3000, (1, -1, -1), 0, WIDE16),      # 5,000 < 2^13
+    (640, 256, (1, -1, -1), 5, WIDE),          # a byte above code 4
+    (640, 256, (1, -1, -1), 255, WIDE),
+    (8192, 256, (1, -1, -1), 0, WIDE),         # h could reach 2^13
+    (640, 256, (13, -1, -1), 0, WIDE),         # 13 * 640 = 8,320
+    (640, 256, (1, -1, 9), 0, WIDE),           # 640 + 9 * 896 > 2^13
+    (640, 256, (1, -200, -1), 0, WIDE),        # mismatch - gap = -199
+    (512, 256, (1, -1, -1), 0, "smith_waterman"),
+])
+def test_smith_waterman_route(L, W, params, byte, route):
+    """sw_route, before any launch: past 512 positions, a batch of codes
+    0-4 whose scores fit 16 bits goes to K3w's 16-bit pairs; a byte of 5
+    or more, or scores that could reach 2^13 or leave a signed byte, to
+    its 32-bit lanes; up to 512 positions K3 keeps its route."""
+    from arriba_tpu_torch import kernels
+
+    reads = torch.zeros(3, L, dtype=torch.uint8)
+    windows = torch.ones(3, W, dtype=torch.uint8)
+    reads[1, L - 1] = byte
+    before = dict(kernels.launch_counts)
+    assert kernels.sw_route(reads, windows, *params) == route
+    assert kernels.launch_counts == before
 
 
 @pytest.mark.parametrize("L,W,params,ok", [

@@ -130,22 +130,24 @@ def test_smith_waterman_kernel_odd_batches(cuda, N, L, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,W,params", [(513, 256, (1, -1, -1)),
-                                        (512, 256, (16, -1, -1)),
-                                        (256, 256, (1, -200, -1))])
-def test_smith_waterman_kernel_refuses_past_its_guard(cuda, L, W, params):
+@pytest.mark.parametrize("L,W,params,route", [
+    (513, 256, (1, -1, -1), "smith_waterman_wide16"),
+    (512, 256, (16, -1, -1), "smith_waterman_wide"),
+    (256, 256, (1, -200, -1), "smith_waterman_wide")])
+def test_smith_waterman_kernel_refuses_past_its_guard(cuda, L, W, params,
+                                                      route):
     """Shapes and scores past K3's 16-bit guard route to K3w, decided
-    before any launch, and K3w gives the plain version's scores."""
+    before any launch (its 16-bit pairs where only the length stops K3),
+    and K3w gives the plain version's scores."""
     from chip_smoke import smith_waterman_inputs
 
     reads, windows = (torch.from_numpy(x).to(cuda) for x in
                       smith_waterman_inputs(n=64, L=L, W=W))
     before = dict(kernels.launch_counts)
-    assert kernels.sw_route(reads, windows, *params) == "smith_waterman_wide"
+    assert kernels.sw_route(reads, windows, *params) == route
     assert kernels.launch_counts == before
     got = realign.smith_waterman_scores(reads, windows, *params)
-    assert kernels.launch_counts == dict(
-        before, smith_waterman_wide=before["smith_waterman_wide"] + 1)
+    assert kernels.launch_counts == dict(before, **{route: before[route] + 1})
     assert torch.equal(got, realign.smith_waterman_scores_plain(
         reads, windows, *params))
 
@@ -311,35 +313,92 @@ def test_mxu_kmer_screen_kernel_refusals(cuda):
                                                                windows, 7))
 
 
+WIDE16, WIDE = "smith_waterman_wide16", "smith_waterman_wide"
+
+
+def _launch_width(route, reads, windows, params):
+    """One launch of K3w's width route on the batch: int32 [N] scores"""
+    out = torch.full((reads.shape[0],), -1, dtype=torch.int32,
+                     device=reads.device)
+    getattr(kernels, f"launch_{route}")(
+        reads, windows, out, kernels.sw_wide_carry(reads, windows, route),
+        *params)
+    return out
+
+
 # K3w at reduced counts of chip_smoke.SWW_CASES' shapes: reads of 640
-# (the 600 bp ReadBatch width) and 1,024 (two tiles) and 5,000 (ten), bytes
-# 5-255, h past 2^13, match - gap outside a byte, a positive gap; odd N
+# (the 600 bp ReadBatch width), 513 (one past K3) and 1,024 (two tiles) at
+# 4,096 rows and fewer, 5,000 (ten tiles), bytes 5-255, h past 2^13, match
+# - gap outside a byte, a positive gap; row counts that are no multiple of
+# a block's 4 rows (32-bit) or 8 (16-bit). A batch routed to the 16-bit
+# pairs is also scored by the 32-bit lanes: both widths equal the plain
+# version.
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,L,W,params,above_4", [
-    (513, 640, 256, (1, -1, -1), False),
-    (64, 1024, 2048, (1, -1, -1), False),
-    (3, 5000, 300, (1, -1, -1), True),
-    (333, 256, 256, (1, -1, -1), True),
-    (8, 4608, 4608, (2, -3, -5), False),
-    (257, 256, 256, (1, -1, -200), False),
-    (31, 600, 90, (3, -2, 2), False),
+@pytest.mark.parametrize("N,L,W,params,above_4,route", [
+    (513, 640, 256, (1, -1, -1), False, WIDE16),
+    (4096, 640, 256, (1, -1, -1), False, WIDE16),
+    (4096, 513, 256, (1, -1, -1), False, WIDE16),
+    (4093, 513, 300, (1, -1, -1), False, WIDE16),
+    (64, 1024, 2048, (1, -1, -1), False, WIDE16),
+    (3, 5000, 300, (1, -1, -1), True, WIDE),
+    (333, 256, 256, (1, -1, -1), True, WIDE),
+    (4097, 640, 256, (1, -1, -1), True, WIDE),
+    (8, 4608, 4608, (2, -3, -5), False, WIDE),
+    (257, 256, 256, (1, -1, -200), False, WIDE),
+    (31, 600, 90, (3, -2, 2), False, WIDE16),
 ])
 def test_smith_waterman_wide_kernel_matches_plain(cuda, N, L, W, params,
-                                                  above_4):
+                                                  above_4, route):
     from chip_smoke import smith_waterman_inputs
 
     reads, windows = (torch.from_numpy(x).to(cuda) for x in
                       smith_waterman_inputs(n=N, L=L, W=W, above_4=above_4))
-    assert kernels.sw_route(reads, windows, *params) == "smith_waterman_wide"
+    assert kernels.sw_route(reads, windows, *params) == route
     before = dict(kernels.launch_counts)
     got = realign.smith_waterman_scores(reads, windows, *params)
-    assert kernels.launch_counts == dict(
-        before, smith_waterman_wide=before["smith_waterman_wide"] + 1)
+    assert kernels.launch_counts == dict(before, **{route: before[route] + 1})
     want = realign.smith_waterman_scores_plain(reads, windows, *params)
     assert torch.equal(got, want)
+    if route == WIDE16:
+        assert torch.equal(_launch_width(WIDE, reads, windows, params), want)
     assert int(want.max()) > 8
     if params == (2, -3, -5):
         assert int(want.max()) >= 1 << 13
+
+
+# each row trimmed to its own extents on the card: reads and windows
+# ending in PAD at every length from 0 up, PADs inside reads and windows
+# (kept), empty rows, pairs of rows of different lengths, in both widths
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,W", [(1100, 1100, 160), (515, 513, 96)])
+def test_smith_waterman_wide_kernel_trims_each_row(cuda, N, L, W):
+    import numpy as np
+
+    from chip_smoke import smith_waterman_inputs
+
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    reads, windows = smith_waterman_inputs(seed=29, n=N, L=L, W=W)
+    rng = np.random.default_rng(N)
+    rows = np.arange(N)
+    extent = rows % (L + 1)                     # reads of every length
+    reads[:] = rng.integers(0, 4, reads.shape)
+    reads[np.arange(L)[None, :] >= extent[:, None]] = PAD_CODE
+    windows[np.arange(W)[None, :] >= (rows * 7 % (W + 1))[:, None]] = \
+        PAD_CODE
+    inside = rows[(rows % 3 == 1) & (extent > 2)]
+    reads[inside, extent[inside] // 2] = PAD_CODE
+    copies = rows[rows % 2 == 0]
+    span = np.minimum(extent[copies], W // 2)
+    for row, n_copy in zip(copies, span):
+        reads[row, :n_copy] = windows[row, :n_copy]
+    reads, windows = (torch.from_numpy(x).to(cuda) for x in (reads, windows))
+    want = realign.smith_waterman_scores_plain(reads, windows)
+    empty = torch.from_numpy(extent == 0).to(cuda)
+    assert int(want.max()) > 8 and int(want[empty].max()) == 0
+    for route in (WIDE16, WIDE):
+        assert torch.equal(_launch_width(route, reads, windows, (1, -1, -1)),
+                           want)
 
 
 # the any-k kernel at chip_smoke's k on the bench rows (first 64) and case
@@ -430,33 +489,45 @@ def test_sharded_realign_step_on_600bp_reads(cuda):
     from chip_smoke import realign_600bp
 
     result = realign_600bp(256, cpu=True)
-    # one launch a shard: 1 + 4, and none of K3
-    assert result["launches"]["smith_waterman_wide"] == 5
+    # one launch a shard of K3w's 16-bit pairs: 1 + 4, and none of K3 or
+    # of the 32-bit lanes
+    assert result["launches"]["smith_waterman_wide16"] == 5
+    assert result["launches"]["smith_waterman_wide"] == 0
     assert result["launches"]["smith_waterman"] == 0
 
 
 def test_smith_waterman_wrapper_checks_its_guard_before_launch(monkeypatch):
     """Shapes and scores past K3's 16-bit guard: K3's own launcher still
     refuses them before launch, and smith_waterman routes them to K3w
-    (sw_route, from shapes and scores alone) before its one launch, K3w's
-    (a CUDA-free check: the tensor checks are stubbed and the launches
+    (sw_route, from shapes, scores and bytes) before its one launch, K3w's
+    16-bit pairs where only the length stops K3 and its 32-bit lanes
+    otherwise; the 16-bit launcher refuses scores past 16 bits (a
+    CUDA-free check: the tensor checks are stubbed and the launches
     recorded)."""
     launched = []
     monkeypatch.setattr(kernels, "_require", lambda *args: None)
     monkeypatch.setattr(kernels, "_launch",
                         lambda name, *args: launched.append(name))
     out = torch.zeros(2, dtype=torch.int32)
-    for L, W, params in ((513, 64, (1, -1, -1)), (512, 64, (16, -1, -1)),
-                         (64, 64, (1, -1, -200))):
+    for L, W, params, route in (
+            (513, 64, (1, -1, -1), "smith_waterman_wide16"),
+            (512, 64, (16, -1, -1), "smith_waterman_wide"),
+            (64, 64, (1, -1, -200), "smith_waterman_wide")):
         reads = torch.zeros(2, L, dtype=torch.uint8)
         windows = torch.zeros(2, W, dtype=torch.uint8)
         with pytest.raises(ValueError):
             kernels.launch_smith_waterman(reads, windows, out, *params)
         assert launched == []
-        assert kernels.sw_route(reads, windows, *params) == \
-            "smith_waterman_wide"
+        if route == "smith_waterman_wide":
+            with pytest.raises(ValueError):
+                kernels.launch_smith_waterman_wide16(
+                    reads, windows, out,
+                    kernels.sw_wide_carry(reads, windows,
+                                          "smith_waterman_wide16"), *params)
+            assert launched == []
+        assert kernels.sw_route(reads, windows, *params) == route
         kernels.smith_waterman(reads, windows, *params)
-        assert launched == ["smith_waterman_wide"]
+        assert launched == [route]
         launched.clear()
     kernels.launch_smith_waterman(torch.zeros(2, 256, dtype=torch.uint8),
                                   torch.zeros(2, 256, dtype=torch.uint8),
@@ -521,6 +592,9 @@ _SWW_ARGS = (torch.zeros(2, 600, dtype=torch.uint8),
     ("launch_smith_waterman_wide",
      _SWW_ARGS + (torch.zeros(2, dtype=torch.int32),
                   torch.zeros(2, 16, dtype=torch.int32))),
+    ("launch_smith_waterman_wide16",
+     _SWW_ARGS + (torch.zeros(2, dtype=torch.int32),
+                  torch.zeros(1, 16, dtype=torch.int32))),
     ("mxu_kmer_screen", _MK_ARGS + (12,)),
     ("launch_mxu_kmer_screen",
      _MK_ARGS + (torch.zeros(2, dtype=torch.uint8), 3)),
