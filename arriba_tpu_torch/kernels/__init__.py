@@ -6,8 +6,9 @@ launches on PyTorch's current stream into an output the caller allocated,
 and raises if the launch returned a CUDA error. It adds one to
 ``launch_counts[name]`` where it launches, and nowhere else, so a run can
 show that its main path went through the kernel; a kernel with a second
-variant counts it under its own name (``smith_waterman_wide16``,
-``smith_waterman_wide``, ``mxu_kmer_screen_any_k``). The value ranges of
+variant counts it under its own name (``low_entropy_long``,
+``smith_waterman_wide16``, ``smith_waterman_wide``,
+``mxu_kmer_screen_any_k``). The value ranges of
 the row lengths are checked on the host where the callers build them; the
 kernels clamp those lengths to their rows, so no value can make them read
 outside their inputs.
@@ -33,9 +34,9 @@ in ``ops/``.
 from __future__ import annotations
 
 launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
-                 "smith_waterman": 0, "smith_waterman_wide16": 0,
-                 "smith_waterman_wide": 0, "mxu_kmer_screen": 0,
-                 "mxu_kmer_screen_any_k": 0}
+                 "low_entropy_long": 0, "smith_waterman": 0,
+                 "smith_waterman_wide16": 0, "smith_waterman_wide": 0,
+                 "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0}
 
 
 def reset_launch_counts() -> None:
@@ -115,18 +116,31 @@ def accept_wavefront(reads, windows, params):
     return out != 0
 
 
-# K2 takes positions as int32
+# K2 takes positions as int32; rows of at most LE_PACKED_MAX_CODES codes
+# (csrc/low_entropy.cuh, whose packed entry point refuses wider rows) take
+# its packed counters, wider ones its three-counter kernel
 LE_MAX_CODES = (1 << 31) - 1
+LE_PACKED_MAX_CODES = 3072
+
+
+def le_route(row_bytes: int) -> str:
+    """The K2 entry point for packed rows of row_bytes bytes: "low_entropy"
+    (arriba_low_entropy, the packed counters) up to LE_PACKED_MAX_CODES
+    codes, "low_entropy_long" (arriba_low_entropy_long, three 32-bit
+    counters a 3-mer) past them. Launches nothing."""
+    return ("low_entropy" if 4 * row_bytes <= LE_PACKED_MAX_CODES
+            else "low_entropy_long")
 
 
 def launch_low_entropy(packed, meta, out) -> None:
     """K2 (csrc/low_entropy.cu) into out, uint8 [N]: 1 for a low-entropy
     read, else 0. packed uint8 [N, B] holds 4 two-bit codes per byte (low
     bits first); meta int32 [N, 8] = (length, a1s, a1e, a2s, a2e, th_all,
-    th_a1, th_a2) with length <= 4 * B. The row width picks the counters
-    before launch (arriba_low_entropy): rows of at most 3,072 codes select
-    one 3-mer at most 1,023 times and keep its three counters in 10-bit
-    fields of one word; wider rows keep three 32-bit counters."""
+    th_a1, th_a2) with length <= 4 * B. The row width picks the kernel
+    before launch (le_route): rows of at most 3,072 codes select one 3-mer
+    at most 1,023 times and keep its three counters in 10-bit fields of one
+    word; wider rows keep three 32-bit counters, counted as
+    "low_entropy_long"."""
     import torch
 
     _require(packed, "packed", torch.uint8, 2)
@@ -138,8 +152,8 @@ def launch_low_entropy(packed, meta, out) -> None:
     if 4 * row_bytes > LE_MAX_CODES:
         raise ValueError(f"rows longer than {LE_MAX_CODES:,} codes overflow "
                          f"K2's int32 positions")
-    _launch("low_entropy", packed.data_ptr(), meta.data_ptr(), out.data_ptr(),
-            n, row_bytes)
+    _launch(le_route(row_bytes), packed.data_ptr(), meta.data_ptr(),
+            out.data_ptr(), n, row_bytes)
 
 
 def low_entropy(packed, meta):
@@ -364,6 +378,20 @@ def mxu_route(k: int) -> str:
     if k < 1:
         raise ValueError(f"k-mers of length {k}: K4 takes 1 <= k")
     return "mxu_kmer_screen" if k == 8 else "mxu_kmer_screen_any_k"
+
+
+def mxu_any_chunk(k: int) -> int:
+    """The window k-mers a stage of the any-k kernel holds at k >= 1
+    (mk_any_layout in csrc/mxu_kmer_screen.cuh, asked of the built
+    library), so that a caller can place a k-mer across a stage's chunk.
+    Launches nothing."""
+    import ctypes
+
+    from .build import host_function
+
+    return host_function("mxu_kmer_screen",
+                         "arriba_mxu_kmer_screen_any_k_chunk",
+                         [ctypes.c_int], ctypes.c_int)(k)
 
 
 def launch_mxu_kmer_screen(reads, windows, out, k: int = 8) -> None:

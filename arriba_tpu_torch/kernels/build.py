@@ -36,6 +36,9 @@ _SIGNATURES = {
     "low_entropy": ("arriba_low_entropy",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]),
+    "low_entropy_long": ("arriba_low_entropy_long",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p]),
     "smith_waterman": ("arriba_smith_waterman",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p]),
@@ -53,7 +56,8 @@ _SIGNATURES = {
                               + [ctypes.c_void_p]),
 }
 _LIBRARIES = {"mxu_kmer_screen_any_k": "mxu_kmer_screen",
-              "smith_waterman_wide16": "smith_waterman_wide"}
+              "smith_waterman_wide16": "smith_waterman_wide",
+              "low_entropy_long": "low_entropy"}
 
 _loaded: dict = {}
 
@@ -141,6 +145,15 @@ def load(name: str):
         entry = _loaded[name] = (launch,
                                  lambda code: error(code).decode())
     return entry
+
+
+def host_function(library: str, symbol: str, argtypes, restype):
+    """A host-only C function of lib<library>.so, built on first use."""
+    if _stale(library):
+        build((library,))
+    function = getattr(ctypes.CDLL(str(library_path(library))), symbol)
+    function.argtypes, function.restype = argtypes, restype
+    return function
 
 
 if __name__ == "__main__":

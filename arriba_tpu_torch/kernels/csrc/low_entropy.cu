@@ -22,7 +22,9 @@
 // so that all of them sit in the thread's own bank; the thresholds are
 // tested once per 3-mer at the end. Longer rows take a second kernel, le_row
 // with three 32-bit counters a 3-mer, reading the codes from device memory.
-// The route is chosen from the row width before launch.
+// Each kernel has its own entry point; the host picks one from the row
+// width before launch (kernels.le_route), and the packed entry refuses
+// wider rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,37 +119,49 @@ low_entropy_long_kernel(const uint8_t* __restrict__ packed,
 extern "C" {
 
 // packed uint8 [n, row_bytes] (4 codes per byte), meta int32 [n, 8],
-// out uint8 [n]; length <= 4 * row_bytes per row. Rows of at most
-// LE_PACKED_MAX_CODES codes take the packed counters, longer ones the
-// three-counter kernel.
+// out uint8 [n]; length <= 4 * row_bytes per row. The packed counters:
+// rows of at most LE_PACKED_MAX_CODES codes (wider ones are refused and
+// take arriba_low_entropy_long).
 int arriba_low_entropy(const void* packed, const void* meta, void* out,
                        int n, int row_bytes, void* stream) {
-    if (n == 0) return 0;
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (4LL * row_bytes <= arriba::LE_PACKED_MAX_CODES) {
-        // counters, then the rows, shifted by up to 15 bytes to keep their
-        // 16-byte alignment, in whole 16-byte words
-        const size_t smem = kBlock * 64 * sizeof(uint32_t)
-                            + ((size_t)kBlock * row_bytes + 30) / 16 * 16;
-        if (smem > 48 * 1024) {  // rows wider than 512 codes
-            const cudaError_t e = cudaFuncSetAttribute(
-                low_entropy_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-        low_entropy_kernel<<<(n + kBlock - 1) / kBlock, kBlock, smem, s>>>(
-            (const uint8_t*)packed, (const int32_t*)meta, (uint8_t*)out, n,
-            row_bytes);
-    } else {
-        low_entropy_long_kernel<<<(n + kLongBlock - 1) / kLongBlock,
-                                  kLongBlock, 0, s>>>(
-            (const uint8_t*)packed, (const int32_t*)meta, (uint8_t*)out, n,
-            row_bytes);
+    if (4LL * row_bytes > arriba::LE_PACKED_MAX_CODES) {
+        return (int)cudaErrorInvalidValue;
     }
+    if (n == 0) return 0;
+    // counters, then the rows, shifted by up to 15 bytes to keep their
+    // 16-byte alignment, in whole 16-byte words
+    const size_t smem = kBlock * 64 * sizeof(uint32_t)
+                        + ((size_t)kBlock * row_bytes + 30) / 16 * 16;
+    if (smem > 48 * 1024) {  // rows wider than 512 codes
+        const cudaError_t e = cudaFuncSetAttribute(
+            low_entropy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    low_entropy_kernel<<<(n + kBlock - 1) / kBlock, kBlock, smem,
+                         (cudaStream_t)stream>>>(
+        (const uint8_t*)packed, (const int32_t*)meta, (uint8_t*)out, n,
+        row_bytes);
     return (int)cudaGetLastError();
 }
 
 const char* arriba_low_entropy_error(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+// the same at any row width: three 32-bit counters a 3-mer
+// (low_entropy_long_kernel), for rows past LE_PACKED_MAX_CODES codes
+int arriba_low_entropy_long(const void* packed, const void* meta, void* out,
+                            int n, int row_bytes, void* stream) {
+    if (n == 0) return 0;
+    low_entropy_long_kernel<<<(n + kLongBlock - 1) / kLongBlock, kLongBlock,
+                              0, (cudaStream_t)stream>>>(
+        (const uint8_t*)packed, (const int32_t*)meta, (uint8_t*)out, n,
+        row_bytes);
+    return (int)cudaGetLastError();
+}
+
+const char* arriba_low_entropy_long_error(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 

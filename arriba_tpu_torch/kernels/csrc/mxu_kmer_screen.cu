@@ -333,106 +333,241 @@ mxu_kmer_screen_kernel(const uint8_t* __restrict__ reads,
     }
 }
 
-// K4 at any k other than 8 (mxu_kmer_screen.cuh, "K4 at any k"): a block is
-// one warpgroup and walks rows by a fixed stride; a row is its slabs of
-// MK_N read k-mers, each against the window's groups of plan.groups tiles
-// of 64 window k-mers. At a slab's first group the block writes the
-// slab's B images (scaled 1 and 64) for the k-steps they hold
-// (plan.kchunk; when a k-mer has more k-steps than that, every group
-// writes them again, chunk by chunk), straight from the read's bytes in
-// device memory. A group starts its accumulator at plan.bias and, for each
-// k-step, builds its tiles' scaled A from the window's bytes and chains
-// their wgmmas into it; then every thread tests its 80 sums (mk_any_hit:
-// their OR against plan.mask, or with one tile a group their largest
-// against k) and the block votes. A hit ends the row. No copy ring: the
-// bytes come through the caches, which is enough for the rows this kernel
-// serves.
-__global__ void __launch_bounds__(kThreads)
+// K4 at any k other than 8 (mxu_kmer_screen.cuh, "K4 at any k" and "The
+// any-k kernel's stages"): K4's design at any k. A block is one warpgroup
+// and walks its rows by a fixed stride through K4's copy ring: each stage
+// (a slab of MK_N read k-mers against a chunk of window k-mers, over a part
+// of the k-steps; mk_any_layout) reaches shared memory by cp.async.bulk on
+// its slot's mbarrier, MK_STAGES - 1 stages ahead of the stage in use, in
+// the order of the block's MkCursor, so the next row's first stages arrive
+// while a row that a hit decides is skipped. At a stage the block writes
+// the window's bytes once into a table of one-hot words (mk_word) and, at a
+// slab's first stage (at every stage when a row has more than one part),
+// the slab's B images of the stage's k-steps, scaled 1 and 64, from the
+// staged read bytes (mk_any_b_word); one barrier. Then for each group of
+// plan.groups tiles of 64 window k-mers: the accumulator starts at
+// plan.bias (b in every digit, 0 with one tile a group), and every k-step of the stage goes to the
+// tensor cores back to back: for each k-step the tiles' A fragments from
+// the word table with their shifts (mk_any_a_words; built while the
+// k-step before runs), wgmma.fence, the tiles' wgmma.mma_async.m64n160k32
+// s8 into the one accumulator; then one commit and one wait for the
+// group; the next group's first A while every thread tests its 80 sums
+// (mk_any_hit: their OR against plan.mask, or with one tile a group their
+// largest against k); and after every group the block votes
+// (__syncthreads_or, uniform; K4's vote every two groups measured slower
+// here, PERF.md, the any-k redesign). Where a row has more than
+// one part (k > 72), the group's accumulator runs on across its stages
+// and is tested at the last. A hit ends the row: its stages in flight are
+// waited for and skipped. G (= plan.groups) and KB (the k-steps a stage
+// issues: a k-mer's up to k = 32, else the images' nine or nineteen) are
+// template arguments (any_kernel). Every instantiation fits four blocks an
+// SM in its registers (at most 128: 120-125 by ptxas), and the stage's
+// chunk is sized so that their shared memory does too where it can
+// (mk_any_layout).
+template <int KB, int G>
+__global__ void __launch_bounds__(kThreads, arriba::MK_ANY_SM_BLOCKS)
 mxu_kmer_screen_any_kernel(const uint8_t* __restrict__ reads,
                            const uint8_t* __restrict__ windows,
                            uint8_t* __restrict__ out, int n, int L, int W,
-                           arriba::MkPlan plan) {
-    extern __shared__ __align__(16) uint8_t images[];  // 16: no swizzle
+                           arriba::MkPlan plan, arriba::MkAnyLayout lay) {
+    extern __shared__ __align__(128) uint8_t shared[];  // mk_any_layout
+    __shared__ __align__(8) uint64_t bars[kStages];
+    __shared__ Stage stages[kStages];
+    uint8_t* const images = shared;
+    uint8_t* const read_s = shared + lay.read_at;
+    uint8_t* const window_s = shared + lay.window_at;
+    uint32_t* const words = reinterpret_cast<uint32_t*>(shared + lay.words_at);
+
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp_row = 16 * (tid >> 5);
-    const int k = plan.k;
-    const int slabs = (arriba::mk_any_kmers(L, k) + arriba::MK_N - 1)
+    const int slabs = (arriba::mk_any_kmers(L, plan.k) + arriba::MK_N - 1)
                       / arriba::MK_N;
-    const int tiles = (arriba::mk_any_kmers(W, k) + arriba::MK_TILE_M - 1)
-                      / arriba::MK_TILE_M;
-    const int groups = (tiles + plan.groups - 1) / plan.groups;
-    const int span = plan.groups * arriba::MK_TILE_M;
+    const int wk = arriba::mk_any_kmers(W, plan.k);
+    const int chunks = (wk + lay.chunk - 1) / lay.chunk;
+    if (slabs == 0 || chunks == 0) {        // no k-mer on one side
+        for (int row = blockIdx.x * kThreads + tid; row < n;
+             row += gridDim.x * kThreads) {
+            out[row] = 0;
+        }
+        return;
+    }
+    if (tid == 0) {
+        for (int i = 0; i < kStages; ++i) bar_init(&bars[i]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
 
-    for (int row = blockIdx.x; row < n; row += gridDim.x) {
-        const uint8_t* read = reads + (size_t)row * L;
-        const uint8_t* window = windows + (size_t)row * W;
-        bool hit = false;
-        for (int slab = 0; slab < slabs && !hit; ++slab) {
-            const int n0 = slab * arriba::MK_N;
-            for (int g = 0; g < groups && !hit; ++g) {
-                int32_t d[kAcc];
+    // the copy cursor over (row, slab, chunk x part) (every thread moves
+    // it, thread 0 issues) and the last row decided by a hit
+    const int stage_chunks = chunks * lay.parts;
+    arriba::MkCursor cursor = {(int)blockIdx.x, 0, 0};
+    int decided = -1;
+    auto issue = [&](int i) {
+        const arriba::MkStage at = cursor.next(n, gridDim.x, slabs,
+                                               stage_chunks, decided);
+        const int slot = i % kStages;
+        if (tid == 0) {
+            Stage s = {at, 0, 0};
+            if (at.row >= 0) {
+                const int c0 = at.chunk % lay.parts * plan.kchunk;
+                const arriba::MkBytes rb = arriba::mk_any_bytes(
+                    plan, at.slab * arriba::MK_N, arriba::MK_N, c0, L);
+                const arriba::MkBytes wb = arriba::mk_any_bytes(
+                    plan, at.chunk / lay.parts * lay.chunk, lay.chunk, c0, W);
+                const uint8_t* r = reads + (size_t)at.row * L + rb.start;
+                const uint8_t* w = windows + (size_t)at.row * W + wb.start;
+                const uint32_t r_bytes = arriba::mk_span(
+                    (uintptr_t)r, rb.count, &s.read_shift);
+                const uint32_t w_bytes = arriba::mk_span(
+                    (uintptr_t)w, wb.count, &s.window_shift);
+                stage_copy(&bars[slot], read_s + slot * lay.read_slot,
+                           r - s.read_shift, r_bytes,
+                           window_s + slot * lay.window_slot,
+                           w - s.window_shift, w_bytes);
+            }
+            stages[slot] = s;
+        }
+    };
+    for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+    const uint64_t desc0 = arriba::mk_desc(smem(images), arriba::MK_LBO,
+                                           arriba::MK_SBO);
+    const int span = G * arriba::MK_TILE_M;
+    const int32_t start = plan.bias;
+    int32_t d[kAcc];
+    uint32_t a[KB][G][4];
+    // the A fragments of k-step s for group g's tiles (zero past k)
+    auto build_a = [&](uint32_t (&as)[G][4], int g, int s, int c0) {
 #pragma unroll
-                for (int i = 0; i < kAcc; ++i) d[i] = plan.bias;
-                for (int c0 = 0; c0 < plan.ksteps; c0 += plan.kchunk) {
-                    const int c_n = min(plan.kchunk, plan.ksteps - c0);
-                    if (g == 0 || plan.kchunk < plan.ksteps) {
-                        // every thread's products on the images are done
-                        __syncthreads();
-                        for (int s = 0; s < c_n; ++s) {
-                            for (int w = tid; w < arriba::MK_IMAGE / 4;
-                                 w += kThreads) {
-                                const uint32_t word = arriba::mk_any_b_word(
-                                    read, L, n0, k, c0 + s, w);
-                                for (int i = 0; i < plan.images; ++i) {
-                                    reinterpret_cast<uint32_t*>(
-                                        images + (size_t)(i * plan.kchunk + s)
-                                                     * arriba::MK_IMAGE)[w] =
-                                        word << arriba::mk_any_b_shift(i);
-                                }
-                            }
-                        }
-                        fence_proxy_async();
-                        __syncthreads();
-                    }
-                    for (int s = 0; s < c_n; ++s) {
-                        uint32_t a[arriba::MK_GROUP][4];
-#pragma unroll
-                        for (int j = 0; j < arriba::MK_GROUP; ++j) {
-                            if (j < plan.groups) {
-                                arriba::mk_any_a_fragment(
-                                    window, W, g * span + j * arriba::MK_TILE_M
-                                                   + warp_row,
-                                    k, c0 + s, lane, a[j],
-                                    arriba::mk_any_a_shift(plan, j));
-                            }
-                        }
-                        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-                        pin(d);
-#pragma unroll
-                        for (int j = 0; j < arriba::MK_GROUP; ++j) {
-                            if (j < plan.groups) {
-                                const int image =
-                                    arriba::mk_any_image(plan, j);
-                                wgmma_tile(d, a[j], arriba::mk_desc(
-                                    smem(images + (size_t)(image * plan.kchunk
-                                                           + s)
-                                                      * arriba::MK_IMAGE),
-                                    arriba::MK_LBO, arriba::MK_SBO), 1);
-                            }
-                        }
-                        asm volatile("wgmma.commit_group.sync.aligned;"
-                                     ::: "memory");
-                        asm volatile("wgmma.wait_group.sync.aligned 0;"
-                                     ::: "memory");
-                        pin(d);
-                    }
+        for (int j = 0; j < G; ++j) {
+            arriba::mk_any_a_words(plan, words,
+                                   g * span + j * arriba::MK_TILE_M
+                                       + warp_row,
+                                   s, c0, lane, as[j],
+                                   arriba::mk_any_a_shift(plan, j));
+        }
+    };
+
+    for (int i = 0;; ++i) {
+        // every thread is done with slot (i - 1) % kStages, whose refill by
+        // the async proxy follows, with the images' last products and with
+        // the word table; the stage descriptors written so far are visible
+        fence_proxy_async();
+        __syncthreads();
+        issue(i + kStages - 1);
+        const int slot = i % kStages;
+        const Stage stage = stages[slot];
+        const arriba::MkStage s = stage.at;
+        if (s.row < 0) break;
+        bar_wait(&bars[slot], (uint32_t)(i / kStages) & 1u);
+        if (s.row == decided) continue;
+        const int chunk = s.chunk / lay.parts;
+        const int part = s.chunk % lay.parts;
+        const int c0 = part * plan.kchunk;
+        const int kc = min(plan.kchunk, plan.ksteps - c0);
+        // the B images of the stage's k-steps where they change, and the
+        // window's bases as one-hot words; one barrier for both
+        if (lay.parts > 1 || s.chunk == 0) {
+            const uint8_t* r = read_s + slot * lay.read_slot
+                               + stage.read_shift;
+            const int count = arriba::mk_any_bytes(
+                plan, s.slab * arriba::MK_N, arriba::MK_N, c0, L).count;
+            constexpr int kImageWords = arriba::MK_IMAGE / 4;
+            for (int w = tid; w < kc * kImageWords; w += kThreads) {
+                const int step = w / kImageWords;
+                const int at = w - step * kImageWords;
+                const uint32_t word = arriba::mk_any_b_word(
+                    plan, r, count, c0 + step, c0, at);
+                for (int im = 0; im < plan.images; ++im) {
+                    reinterpret_cast<uint32_t*>(images)[
+                        (im * plan.kchunk + step) * kImageWords + at] =
+                        word << arriba::mk_any_b_shift(im);
                 }
-                hit = __syncthreads_or(arriba::mk_any_hit<kAcc>(plan, d));
+            }
+            fence_proxy_async();
+        }
+        const int q0 = chunk * lay.chunk;
+        {
+            const uint8_t* w = window_s + slot * lay.window_slot
+                               + stage.window_shift;
+            const int count = arriba::mk_any_bytes(plan, q0, lay.chunk, c0,
+                                                   W).count;
+            for (int at = tid; at < lay.words; at += kThreads) {
+                words[at] = arriba::mk_word(w, count, at);
             }
         }
-        if (tid == 0) out[row] = hit ? 1 : 0;
+        __syncthreads();
+        // the stage's groups; a group past the window's last k-mer holds
+        // only k-mers that run off it (zero words, no hit). Every path up
+        // to the wait is the same for every thread and every group (no
+        // branch, which would make ptxas serialise the wgmmas): a part
+        // past the first carries the accumulator on, a k-step past the
+        // part's (at most KB - 1 of them, at the last part or where KB
+        // rounds the k-steps up) has a zero A and multiplies an image the
+        // part holds
+        const int groups = min(lay.groups, (wk - q0 + span - 1) / span);
+        const bool last_part = part == lay.parts - 1;
+        build_a(a[0], 0, c0, c0);
+        bool hit = false, seen = false;
+        for (int g = 0; g < groups && !hit; ++g) {
+#pragma unroll
+            for (int x = 0; x < kAcc; ++x) d[x] = part == 0 ? start : d[x];
+            // k-step x's A is built while k-step x - 1's products run (a[0]
+            // ahead of the group). ptxas then reports the wgmmas
+            // serialised (an A register written inside the commit group),
+            // but every A built first measured no faster at k = 12 and 16
+            // and slower at k = 31, where its 157 registers let three
+            // blocks share an SM, not four (PERF.md, the any-k redesign)
+#pragma unroll
+            for (int x = 0; x < KB; ++x) {
+                if (x > 0) build_a(a[x], g, c0 + x, c0);
+                const int step = x < kc ? x : 0;
+                asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+                pin(d);
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    const int im = arriba::mk_any_image(plan, j);
+                    wgmma_tile(d, a[x][j],
+                               desc0 + (uint64_t)(((im * plan.kchunk + step)
+                                                   * arriba::MK_IMAGE) >> 4),
+                               1);
+                }
+            }
+            asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+            pin(d);
+            // the next group's first A (this group's again at the last)
+            build_a(a[0], g + 1 < groups ? g + 1 : g, c0, c0);
+            if (last_part) {
+                seen |= arriba::mk_any_hit<kAcc>(plan, d);
+                hit = __syncthreads_or(seen);
+            }
+        }
+        if (hit) decided = s.row;
+        if ((hit || (s.slab == slabs - 1 && s.chunk == stage_chunks - 1))
+            && tid == 0) {
+            out[s.row] = hit ? 1 : 0;
+        }
     }
+}
+
+using AnyKernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, int,
+                           int, int, arriba::MkPlan, arriba::MkAnyLayout);
+
+// the instantiation for a plan: G = plan.groups tiles a group, KB k-steps a
+// wait: a k-mer's k-steps at k <= 32 (k 17-24 with one zero k-step), nine
+// (the images' k-steps with two tiles a group, k 33-2,048) or nineteen (one
+// tile a group, past k = 2,048); which numbers it for the host's caches
+AnyKernel any_kernel(const arriba::MkPlan& plan, int* which) {
+    static const AnyKernel kernels[] = {
+        mxu_kmer_screen_any_kernel<1, 4>, mxu_kmer_screen_any_kernel<2, 3>,
+        mxu_kmer_screen_any_kernel<4, 3>, mxu_kmer_screen_any_kernel<9, 2>,
+        mxu_kmer_screen_any_kernel<19, 1>};
+    *which = plan.groups == 4 ? 0 : plan.groups == 3 ? (plan.ksteps == 2
+                                                         ? 1 : 2)
+             : plan.groups == 2 ? 3 : 4;
+    return kernels[*which];
 }
 
 // blocks that fit on the card at once, for the device in use (asked once a
@@ -484,38 +619,59 @@ const char* arriba_mxu_kmer_screen_error(int code) {
 
 // the same at any k >= 1 (mxu_kmer_screen_any_kernel; the caller sends
 // k = 8 to arriba_mxu_kmer_screen): out uint8 [n], 1 where read and window
-// share a k-mer over codes 0-3
+// share a k-mer over codes 0-3. The grid (what fits on the card at once, at
+// most a block a row) is asked once a device and k, and each
+// instantiation's dynamic shared-memory limit is only ever raised.
 int arriba_mxu_kmer_screen_any_k(const void* reads, const void* windows,
                                  void* out, int n, int L, int W, int k,
                                  void* stream) {
+    static uint64_t known[64][64];  // (k << 32) | blocks, at [device][k % 64]
+    static int limit[64][5];        // each instantiation's smem attribute
     if (n == 0) return 0;
     if (k < 1) return (int)cudaErrorInvalidValue;
     const arriba::MkPlan plan = arriba::mk_plan(k);
-    const int smem_bytes = plan.images * plan.kchunk * arriba::MK_IMAGE;
-    cudaError_t err = cudaFuncSetAttribute(
-        mxu_kmer_screen_any_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    int device, sms, per_sm;
-    if (err == cudaSuccess) err = cudaGetDevice(&device);
-    if (err == cudaSuccess) {
+    const arriba::MkAnyLayout lay = arriba::mk_any_layout(plan);
+    int which, device, blocks = 0;
+    const AnyKernel kernel = any_kernel(plan, &which);
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    const bool cached = device < 64;
+    const uint64_t entry = cached ? known[device][k & 63] : 0;
+    if (entry >> 32 == (uint64_t)k) blocks = (int)(uint32_t)entry;
+    if (blocks == 0) {
+        if (!cached || lay.bytes > limit[device][which]) {
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                lay.bytes);
+            if (err != cudaSuccess) return (int)err;
+            if (cached) limit[device][which] = lay.bytes;
+        }
+        int sms, per_sm;
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      device);
+        if (err == cudaSuccess) {
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, kThreads, lay.bytes);
+        }
+        if (err != cudaSuccess) return (int)err;
+        blocks = sms * (per_sm > 0 ? per_sm : 1);
+        if (cached) known[device][k & 63] = (uint64_t)k << 32 | blocks;
     }
-    if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, mxu_kmer_screen_any_kernel, kThreads, smem_bytes);
-    }
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = sms * (per_sm > 0 ? per_sm : 1);
-    mxu_kmer_screen_any_kernel<<<n < blocks ? n : blocks, kThreads,
-                                 smem_bytes, (cudaStream_t)stream>>>(
+    kernel<<<n < blocks ? n : blocks, kThreads, lay.bytes,
+             (cudaStream_t)stream>>>(
         (const uint8_t*)reads, (const uint8_t*)windows, (uint8_t*)out, n, L,
-        W, plan);
+        W, plan, lay);
     return (int)cudaGetLastError();
 }
 
 const char* arriba_mxu_kmer_screen_any_k_error(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// the window k-mers a stage of the any-k kernel holds at k (mk_any_layout;
+// a host function, no launch): where a k-mer straddles a stage's chunk
+int arriba_mxu_kmer_screen_any_k_chunk(int k) {
+    return k < 1 ? 0 : arriba::mk_any_layout(arriba::mk_plan(k)).chunk;
 }
 
 }  // extern "C"

@@ -322,36 +322,154 @@ __host__ __device__ inline int mk_any_b_shift(int image) {
     return image == 0 ? 0 : 6;
 }
 
-// word w (MK_IMAGE / 4 a k-step) of the B image of k-step s for the read
-// k-mers of a slab starting at read position n0: the one-hot word of base
-// 8 s + mk_b_word_base(w) of k-mer n0 + mk_b_word_kmer(w); 0 for a base
-// past k or a byte past the read's L
-__host__ __device__ inline uint32_t mk_any_b_word(const uint8_t* read, int L,
-                                                  int n0, int k, int s,
-                                                  int w) {
-    const int base = MK_KSTEP_BASES * s + mk_b_word_base(w);
-    return base < k ? mk_word(read, L, n0 + mk_b_word_kmer(w) + base) : 0u;
-}
-
-// lane's A fragment of k-step s for the 16 window k-mers from q0 (the
-// warp's first row): register r holds base 8 s + column / 4 of the k-mer
-// at row q0 + mk_a_row(lane, r), 0 past k or past the window's W bytes,
-// scaled by 2^shift
-__host__ __device__ inline void mk_any_a_fragment(const uint8_t* window,
-                                                  int W, int q0, int k,
-                                                  int s, int lane,
-                                                  uint32_t a[4], int shift) {
-    for (int r = 0; r < 4; ++r) {
-        const int base = MK_KSTEP_BASES * s + mk_a_col(lane, r, 0) / 4;
-        a[r] = base < k ? mk_word(window, W, q0 + mk_a_row(lane, r) + base)
-                              << shift
-                        : 0u;
-    }
-}
-
 // read k-mers (R = L - k + 1) and window k-mers, 0 when a side has none
 __host__ __device__ inline int mk_any_kmers(int L, int k) {
     return L >= k ? L - k + 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The any-k kernel's stages, its copy ring and its one-hot word tables.
+//
+// A stage is a slab of MK_N read k-mers against a chunk of window k-mers
+// over a part of the k-mers' k-steps, and it is what one slot of the
+// block's copy ring (MK_STAGES slots, MkCursor, as K4) holds. Where the B
+// images hold every k-step (plan.kchunk == plan.ksteps: k <= 72) a row has
+// one part, and a chunk is at most the groups of plan.groups tiles that
+// fit in MK_CHUNK k-mers (2,048 at four and two tiles a group, 1,920 at
+// three). A stage's bytes are then the slab's MK_N + k - 1 read bytes and
+// the chunk's chunk + k - 1 window bytes, so a k-mer that straddles a
+// chunk's end has all its bases in one stage. Past k = 72 those spans
+// would grow with k beyond shared memory (four slots of 2,048 + k - 1
+// window bytes and a table of as many words), so the chunk shrinks to one
+// group (128 k-mers, 64 past k = 2,048) and each part of plan.kchunk
+// k-steps is a stage of its own, holding only its part's bases: the
+// slab's MK_N - 1 + 8 plan.kchunk read bytes at most and the chunk's
+// chunk - 1 + 8 plan.kchunk window bytes; the group's accumulator runs on
+// across the parts of its (slab, chunk). Every stage is then bounded
+// whatever k is (at most ~110 KB of shared memory a block), and a chunk
+// shrinks further where that lets more blocks share an SM
+// (mk_any_layout).
+//
+// Byte i of a stage, on either side, is base 8 c0 + i of the stage's first
+// k-mer (c0 the part's first k-step), so base 8 s + j of the stage's k-mer
+// t lies at mk_any_word_index(t, s - c0, j). The window's bytes become a
+// table of one-hot words once a stage (mk_word), from which each A
+// fragment is a shared load with its tile's shift (mk_any_a_words); the
+// read's become the B images at the stage that starts a slab, or at every
+// stage when a row has more than one part (mk_any_b_word).
+
+struct MkAnyLayout {
+    int chunk;        // window k-mers a stage (a multiple of the group)
+    int groups;       // groups of a full stage
+    int parts;        // stages a (slab, chunk): ceil(ksteps / kchunk)
+    int bases;        // bases a stage covers at most: min(k, 8 kchunk)
+    int read_slot;    // bytes a ring slot's read span (a multiple of 16)
+    int window_slot;  // bytes a ring slot's window span (a multiple of 16)
+    int words;        // one-hot words a stage's window table
+    int read_at;      // dynamic shared memory: the B images from 0, then
+    int window_at;    // the read slots, the window slots and the word table
+    int words_at;
+    int bytes;        // dynamic shared memory a block
+};
+
+// the layout of a stage of `groups` groups
+__host__ __device__ inline MkAnyLayout mk_any_stage_layout(const MkPlan& p,
+                                                           int parts,
+                                                           int groups) {
+    MkAnyLayout s;
+    s.parts = parts;
+    s.groups = groups;
+    s.chunk = groups * p.groups * MK_TILE_M;
+    s.bases = p.k < MK_KSTEP_BASES * p.kchunk ? p.k
+                                               : MK_KSTEP_BASES * p.kchunk;
+    // up to 15 bytes before the span (its 16-byte boundary) and up to 15
+    // after it (cp.async.bulk copies multiples of 16)
+    s.read_slot = (15 + MK_N - 1 + s.bases + 15) / 16 * 16;
+    s.window_slot = (15 + s.chunk - 1 + s.bases + 15) / 16 * 16;
+    s.words = s.chunk - 1 + s.bases;
+    s.read_at = p.images * p.kchunk * MK_IMAGE;
+    s.window_at = s.read_at + MK_STAGES * s.read_slot;
+    s.words_at = s.window_at + MK_STAGES * s.window_slot;
+    s.bytes = s.words_at + 4 * s.words;
+    return s;
+}
+
+// A stage holds the most groups (up to MK_CHUNK k-mers while a row has
+// one part, else one) that keep the block's shared memory within an SM's
+// share for the most blocks an SM (MK_ANY_SM_BLOCKS down to 1) that any
+// stage allows: 1,728 k-mers at k = 31, where 1,920 would let three blocks
+// share an SM, not four
+constexpr int MK_ANY_SM_BLOCKS = 4;
+constexpr int MK_ANY_SM_SHARED = 233472;    // an H100 SM's 228 KB
+constexpr int MK_ANY_BLOCK_EXTRA = 1024 + 128;  // reserved a block, static
+
+__host__ __device__ inline MkAnyLayout mk_any_layout(const MkPlan& p) {
+    const int parts = (p.ksteps + p.kchunk - 1) / p.kchunk;
+    const int most = parts == 1 ? MK_CHUNK / (p.groups * MK_TILE_M) : 1;
+    for (int blocks = MK_ANY_SM_BLOCKS; blocks > 1; --blocks) {
+        const int budget = MK_ANY_SM_SHARED / blocks - MK_ANY_BLOCK_EXTRA;
+        for (int groups = most; groups >= 1; --groups) {
+            const MkAnyLayout s = mk_any_stage_layout(p, parts, groups);
+            if (s.bytes <= budget) return s;
+        }
+    }
+    return mk_any_stage_layout(p, parts, most);
+}
+
+// where a stage's bytes start in a row of n bytes and how many of them it
+// copies: the bases of k-steps c0 .. c0 + plan.kchunk - 1 (up to base k -
+// 1) of the k-mers first .. first + kmers - 1, so from byte first + 8 c0,
+// kmers - 1 + (the part's bases) bytes, clipped to the row (count >= 1
+// for a k-mer first of the row)
+struct MkBytes {
+    int start, count;
+};
+
+__host__ __device__ inline MkBytes mk_any_bytes(const MkPlan& p, int first,
+                                                int kmers, int c0, int n) {
+    const int start = first + MK_KSTEP_BASES * c0;
+    const int left = p.k - MK_KSTEP_BASES * c0;
+    const int bases = left < MK_KSTEP_BASES * p.kchunk
+                          ? left : MK_KSTEP_BASES * p.kchunk;
+    const int want = kmers - 1 + bases;
+    return {start, want < n - start ? want : n - start};
+}
+
+// the stage offset of base 8 (c0 + step) + j of the stage's k-mer t
+__host__ __device__ inline int mk_any_word_index(int t, int step, int j) {
+    return t + MK_KSTEP_BASES * step + j;
+}
+
+// word w (MK_IMAGE / 4 a k-step) of the B image of k-step s for a stage's
+// read k-mers, from its count staged read bytes (part from k-step c0): the
+// one-hot word of base 8 s + mk_b_word_base(w) of k-mer mk_b_word_kmer(w);
+// 0 for a base past k or a byte past count
+__host__ __device__ inline uint32_t mk_any_b_word(const MkPlan& p,
+                                                  const uint8_t* bytes,
+                                                  int count, int s, int c0,
+                                                  int w) {
+    const int j = mk_b_word_base(w);
+    return MK_KSTEP_BASES * s + j < p.k
+               ? mk_word(bytes, count,
+                         mk_any_word_index(mk_b_word_kmer(w), s - c0, j))
+               : 0u;
+}
+
+// lane's A fragment of k-step s for the 16 window k-mers of a stage from
+// its k-mer t0 (the warp's first row), from the stage's one-hot words:
+// register r holds base 8 s + column / 4 of k-mer t0 + mk_a_row(lane, r),
+// scaled by 2^shift, 0 for a base past k
+__host__ __device__ inline void mk_any_a_words(const MkPlan& p,
+                                               const uint32_t* words, int t0,
+                                               int s, int c0, int lane,
+                                               uint32_t a[4], int shift) {
+    for (int r = 0; r < 4; ++r) {
+        const int j = mk_a_col(lane, r, 0) / 4;
+        a[r] = MK_KSTEP_BASES * s + j < p.k
+                   ? words[mk_any_word_index(t0 + mk_a_row(lane, r), s - c0,
+                                             j)] << shift
+                   : 0u;
+    }
 }
 
 }  // namespace arriba

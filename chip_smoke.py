@@ -7,10 +7,11 @@
     python3 chip_smoke.py --k4-occupancy
 
 The second form only times one kernel (accept_wavefront, low_entropy,
-smith_waterman, smith_waterman_wide or mxu_kmer_screen at k = 8) built
-from other sources against this checkout's build (compare; K4's builds
-also go through its stress step; K3w's builds run the width the router
-picks, an older build without the 16-bit entry point its 32-bit one);
+smith_waterman, smith_waterman_wide, mxu_kmer_screen at k = 8 or
+mxu_kmer_screen_any_k) built from other sources against this checkout's
+build (compare; K4's builds, at k = 8 or any k, also go through their
+stress step; K3w's builds run the width the router picks, an older build
+without the 16-bit entry point its 32-bit one);
 a SOURCE is a csrc directory, such as an earlier commit's unpacked with
 ``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
@@ -44,11 +45,14 @@ printed):
    600 bp reads, 65,536 x 640 x 256, and reads of 62-248 positions at that
    shape, in 16-bit pairs; 16,384 x 1,024 x 2,048 in 16-bit pairs and with
    bytes 5-255 in 32-bit lanes; bytes 5-255; the scores (2, -3, -5) past
-   2^13; match - gap outside a signed byte); K4's any-k
-   kernel at k = 1, 4, 12, 16 and 31 (MXU_ANY_K) on the bench rows and on
-   case (d); K1 on 512 x 192 x 2,048 rows of which half walk every
-   diagonal (min_score -2^20 + 1 or read_len - 2^20) and on 70,000 rows of
-   64 x 64 in one launch.
+   2^13; match - gap outside a signed byte); K2's long-row kernel on
+   8,192 reads of 4,000 codes (LE_LONG_SHAPE); K4's any-k kernel at k =
+   1, 4, 12, 16 and 31 (MXU_ANY_K) on the bench rows, case (d) and rows
+   with no hit, on 4,096 mixed rows at k = 12 and 31, and an empty launch
+   of each k's grid, then its stress step (MXU_ANY_STRESS: 50 launches on
+   the mixed rows at each of the two k, every verdict checked); K1 on 512
+   x 192 x 2,048 rows of which half walk every diagonal (min_score -2^20 +
+   1 or read_len - 2^20) and on 70,000 rows of 64 x 64 in one launch.
    Kernel time
    is the median of 20 CUDA-event timed windows after a warm-up, inputs
    checked and output allocated ahead: single launches for K1, whose output
@@ -58,8 +62,10 @@ printed):
    operations are counted from its inputs (accept_work: window positions
    scanned, cells walked on the candidate diagonals), K4's too (mxu_work:
    each row's read k-mers against its window k-mers up to the first that
-   matches, 32 multiply-adds a pair), at the int8 tensor-core rate; K4's library_ms is one torch.bmm of the one-hot
-   encodings (onehot_product_ms).
+   matches, 4k multiply-adds a pair), at the int8 tensor-core rate; K4's library_ms is one torch.bmm of the one-hot
+   encodings (onehot_product_ms); K2's long-row kernel's from its
+   function's steps up to each read's first threshold (le_long_work), the
+   steps it shares with the packed kernel at LE_OPS's rates.
 3. The main path: the genome-scale 150 bp sample (bench_samples.build_tier2)
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
@@ -89,9 +95,10 @@ printed):
    bench's other number: the port's sorted screen (shared_kmer_mask, plain
    torch) timed on the same rows (mxu_path); the same op at each k of
    MXU_ANY_K (mxu_any_k_path), K1's op on 70,000 rows a quarter of
-   which walk every diagonal (accept_path), and the Smith-Waterman op on
+   which walk every diagonal (accept_path), the Smith-Waterman op on
    4,096 x 1,024 x 2,048 rows with bytes 5-255, which K3w's 32-bit lanes
-   score (sww_path).
+   score (sww_path), and the low-entropy scan on 2,048 reads of 4,000
+   codes, which K2's long-row kernel takes (low_entropy_long_path).
 7. The cohort runner: python -m arriba_tpu_torch.parallel.cohort on the
    genome-scale sample listed three times, three workers on the one card
    under run C's environment with jax blocked; each worker's outputs equal
@@ -165,6 +172,28 @@ LE_OPS = {"3-mer from the byte pair": 2,
 # tests against c_all >= 1 and the three thresholds, chained
 LE_WORD_OPS = {"clear and read back": 0.5, "two fields": 3,
                "four threshold tests": 4}
+# K2's long-row kernel (rows past kernels.LE_PACKED_MAX_CODES codes, le_row
+# in csrc/low_entropy.cuh) computes the same function on longer rows, with
+# three 32-bit counters a 3-mer. Its bound is the lesser of two ways to do
+# that work on this run's rows (le_long_ops). Both count the steps the
+# packed kernel shares at LE_OPS's rates, LE_OPS_PER_POSITION a position
+# walked (the 3-mer, the byte pair and loop, the selection, the whole-read
+# counter's address and its predicated add), and a segment counter's add
+# for each aligned segment a selected position counts for (its address a
+# fixed offset of the whole-read counter's; the segments are position
+# ranges fixed per read). Then "stop" walks each read only up to the first
+# position whose count reaches a threshold (le_long_work), testing each
+# counter it adds, chained into the walk's exit test; "end" walks every
+# eligible position and tests each 3-mer's counters once when the read is
+# done, as the packed kernel does.
+# each counter added, on the walk that stops: its threshold test
+LE_LONG_TEST_OPS = 1
+# each read: clearing its 192 counters, four a 128-bit store
+LE_LONG_CLEAR_OPS = 3 * 64 / 4
+# each read walked whole: clearing and reading back each 3-mer's three
+# counters (LE_WORD_OPS's rate) and its four threshold tests
+LE_LONG_END_OPS = 64 * (3 * LE_WORD_OPS["clear and read back"]
+                        + LE_WORD_OPS["four threshold tests"])
 # K3, a pair of valid (read, window) cells, one of each of two independent
 # rows (a read and a window byte both not PAD): the instructions any
 # implementation needs, each with its issue rate a clock per SM. Every
@@ -610,6 +639,85 @@ def low_entropy_inputs(seed: int = 3, n: int = 131072, L: int = 150):
     return codes, lengths, a1s, a1e, a2s, a2e
 
 
+def le_long_work(packed, length, a1s, a1e, a2s, a2e, th_all, th_a1,
+                 th_a2, rows: int = 256) -> dict:
+    """The work le_row does on these rows (packed codes on the card, the
+    rest int tensors [N] there): each read walks its positions p < length -
+    3 in order and stops at the first selected position where one of its
+    3-mer's counters reaches its threshold. Counted with plain torch ops
+    (the selection carried position by position over all reads, the
+    counters as cumulative sums over rows at a time): positions walked,
+    selected positions among them, the segment counts of those (a selected
+    position counted once for each aligned segment it counts for), the
+    eligible positions and their segment counts (a walk to each read's
+    end), and each read's verdict (a stop)."""
+    import torch
+
+    from arriba_tpu_torch.ops import readfilters
+
+    n = packed.shape[0]
+    L = 4 * packed.shape[1]
+    codes = readfilters._unpack_codes(packed, L).long()
+    P = max(0, min(L, int(length.max())) - 3)
+    kv = codes[:, :P] << 4 | codes[:, 1:P + 1] << 2 | codes[:, 2:P + 2]
+    p = torch.arange(P, device=packed.device)
+    eligible = p[None, :] < (length.long() - 3)[:, None]
+    sel = torch.zeros(n, P, dtype=torch.bool, device=packed.device)
+    sel1 = torch.zeros(n, dtype=torch.bool, device=packed.device)
+    sel2 = torch.zeros_like(sel1)
+    for q in range(P):
+        now = eligible[:, q].clone()
+        if q >= 1:
+            now &= ~(sel1 & (kv[:, q] == kv[:, q - 1]))
+        if q >= 2:
+            now &= ~(sel2 & (kv[:, q] == kv[:, q - 2]))
+        sel[:, q] = now
+        sel2, sel1 = sel1, now
+    walked = selected = in_segments = all_segments = 0
+    stops = torch.zeros(n, dtype=torch.bool, device=packed.device)
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        v, s = kv[lo:hi], sel[lo:hi]
+        onehot = torch.nn.functional.one_hot(v, 64).to(torch.int32)
+        crossed = torch.zeros_like(s)
+        segments = [s & (p[None] + 1 >= a1s[lo:hi, None])
+                    & (p[None] < a1e[lo:hi, None]),
+                    s & (p[None] + 1 >= a2s[lo:hi, None])
+                    & (p[None] < a2e[lo:hi, None])]
+        for flags, th in zip([s] + segments, (th_all, th_a1, th_a2)):
+            count = torch.cumsum(onehot * flags[..., None], dim=1)
+            mine = torch.gather(count, 2, v[..., None])[..., 0]
+            crossed |= s & (mine >= th[lo:hi, None].long())
+        stop = crossed.any(dim=1)
+        first = crossed.to(torch.uint8).argmax(dim=1)
+        n_pos = eligible[lo:hi].sum(dim=1)
+        upto = torch.where(stop, first + 1, n_pos)
+        before = p[None] < upto[:, None]
+        walked += int(upto.sum())
+        selected += int((s & before).sum())
+        in_segments += sum(int((flags & before).sum()) for flags in segments)
+        all_segments += sum(int(flags.sum()) for flags in segments)
+        stops[lo:hi] = stop
+    return {"positions": walked, "selected": selected,
+            "segment_counts": in_segments,
+            "eligible": int(eligible.sum()),
+            "all_segment_counts": all_segments, "verdict": stops}
+
+
+def le_long_ops(work: dict, reads: int) -> dict:
+    """The integer operations of K2's function on long rows from
+    le_long_work's counts: {"stop": walking each read to its first
+    threshold, "end": walking it whole}."""
+    return {"stop": (work["positions"] * LE_OPS_PER_POSITION
+                     + work["segment_counts"]
+                     + (work["selected"] + work["segment_counts"])
+                     * LE_LONG_TEST_OPS
+                     + reads * LE_LONG_CLEAR_OPS),
+            "end": (work["eligible"] * LE_OPS_PER_POSITION
+                    + work["all_segment_counts"]
+                    + reads * (LE_LONG_CLEAR_OPS + LE_LONG_END_OPS))}
+
+
 def smith_waterman_inputs(seed: int = 23, n: int = 65536, L: int = 256,
                           W: int = 256, above_4: bool = False):
     """K3's main-path shape: code rows (0-3, PAD 4 beyond a row's length)
@@ -698,7 +806,8 @@ def sww_inputs(name: str):
 
 
 def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
-               L: int = 152, W: int = 8008, k: int = 8):
+               L: int = 152, W: int = 8008, k: int = 8,
+               chunk: int | None = None):
     """K4's phase-2 inputs (reads uint8 [N, L], windows uint8 [N, W]) by
     case, N rows (default 512, 4,096 for 'mixed'). 'bench': the JAX
     package's bench row (bench.py:650-655), random codes 0-3 with a read
@@ -716,8 +825,14 @@ def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
     16th of the window, anywhere in it, or at its last k-mer; given more
     rows than the card holds blocks of K4 (each block then takes rows in
     turn), a block meets rows that a hit decides early next to rows that
-    run to the window's end. k: the k-mers planted (8 for K4's own cases;
-    the any-k kernel's cases plant k-mers of their k the same way)."""
+    run to the window's end. 'straddle': the no_hit background with, in
+    every other row, a read k-mer (its last base code 3) planted by turns
+    where a k-mer straddles the any-k kernel's first chunk boundary
+    (chunk, the window k-mers of a stage at k: kernels.mxu_any_chunk; the
+    chunk's last k-mer, and one from half a k-mer before the boundary), at
+    the window's 2,048th k-mer and at its last. k: the k-mers planted (8
+    for K4's own cases; the any-k kernel's cases plant k-mers of their k
+    the same way)."""
     import numpy as np
 
     from arriba_tpu_torch.ops.encode import PAD_CODE
@@ -738,6 +853,18 @@ def mxu_inputs(case: str, seed: int = 31, N: int | None = None,
     reads = rng.integers(0, 2, (N, L)).astype(np.uint8)
     windows = rng.integers(2, 4, (N, W)).astype(np.uint8)
     if case == "no_hit":
+        return reads, windows
+    if case == "straddle":
+        if chunk is None:
+            raise ValueError("the straddle rows need the chunk at k")
+        spots = (chunk - 1, chunk - k // 2 - 1, 2047, W - k)
+        for row in range(0, N, 2):
+            kmer = rng.integers(0, 4, k).astype(np.uint8)
+            kmer[-1] = 3
+            start = int(rng.integers(0, L - k + 1))
+            at = spots[row // 2 % len(spots)]
+            reads[row, start:start + k] = kmer
+            windows[row, at:at + k] = kmer
         return reads, windows
     if case == "mixed":
         R, WK = L - k + 1, W - k + 1
@@ -859,40 +986,46 @@ def onehot_product_ms(reads, windows, k: int = 8) -> float:
 # so each block takes ~8 rows in turn.
 MXU_STRESS = (("bench", 64, 152, 200), ("bench", 512, 152, 200),
               ("mixed", 4096, 152, 50), ("mixed", 4096, 300, 50))
+# the any-k kernel's: 4,096 mixed rows at k = 12 and 31 (k-mers of that k
+# planted), more rows than its blocks, so each block takes rows in turn
+# and its copy ring runs on across rows that early hits decide
+MXU_ANY_STRESS = (("mixed", 4096, 152, 50, 12), ("mixed", 4096, 152, 50, 31))
 
 
-def mxu_stress(launch, label: str) -> int:
-    """K4's stress step: launch(reads, windows, out) on each set of rows
-    of MXU_STRESS as many times as it says, every verdict against the plain
-    verdict computed once; out is filled with 2 before each launch, so a
-    row left unwritten shows too. A mismatch is a SystemExit that names the
-    build, the case, the launch and the first rows that differ. Returns the
+def mxu_stress(launch, label: str, sets=MXU_STRESS) -> int:
+    """K4's stress step: launch(reads, windows, out, k) on each set of rows
+    (case, rows, read length, launches[, k], k = 8 where a set names none)
+    as many times as it says, every verdict against the plain verdict
+    computed once; out is filled with 2 before each launch, so a row left
+    unwritten shows too. A mismatch is a SystemExit that names the build,
+    the case, the launch and the first rows that differ. Returns the
     launches made."""
     import torch
 
     from arriba_tpu_torch.ops import realign
 
     count = 0
-    for case, rows, L, repeats in MXU_STRESS:
-        reads, windows = mxu_inputs(case, N=max(rows, 512), L=L)
+    for case, rows, L, repeats, *rest in sets:
+        k = rest[0] if rest else 8
+        reads, windows = mxu_inputs(case, N=max(rows, 512), L=L, k=k)
         r, w = (torch.from_numpy(x[:rows].copy()).to("cuda")
                 for x in (reads, windows))
-        want = realign.mxu_shared_kmer_mask_plain(r, w).to(torch.uint8)
+        want = realign.mxu_shared_kmer_mask_plain(r, w, k).to(torch.uint8)
         if case == "mixed" and not 0 < int(want.sum()) < rows:
-            raise SystemExit(f"K4's mixed stress rows ({rows} x {L}) do not "
-                             f"mix hits and rows without one")
+            raise SystemExit(f"K4's mixed stress rows ({rows} x {L}, k = "
+                             f"{k}) do not mix hits and rows without one")
         out = torch.empty(rows, dtype=torch.uint8, device="cuda")
         for repeat in range(repeats):
             out.fill_(2)
-            launch(r, w, out)
+            launch(r, w, out, k)
             bad = torch.nonzero(out != want).flatten()[:8]
             if len(bad):
                 raise SystemExit(
                     f"K4 ({label}) disagrees with its plain version on the "
-                    f"first {rows} {case} rows of length {L} at launch "
-                    f"{repeat + 1} of {repeats}: rows {bad.tolist()} give "
-                    f"{out[bad].tolist()}, the plain version "
-                    f"{want[bad].tolist()}")
+                    f"first {rows} {case} rows of length {L} at k = {k} at "
+                    f"launch {repeat + 1} of {repeats}: rows "
+                    f"{bad.tolist()} give {out[bad].tolist()}, the plain "
+                    f"version {want[bad].tolist()}")
             count += 1
     log(f"K4 stress ({label}): {count} launches, every verdict equal to the "
         f"plain version")
@@ -927,61 +1060,84 @@ def mxu_occupancy() -> None:
     print(json.dumps({"k4_occupancy": {"sms": sms, "ms": result}}))
 
 
-def check_mxu() -> dict:
-    """K4 through realign.mxu_shared_kmer_mask against its plain version on
-    the card, exactly, on each case of MXU_CASES, with each case's launch
-    time (median of 20 windows of K2_K3_BATCH launches), its bounds at the
-    int8 tensor-core rate (the k-mer pairs up to each row's first hit,
-    mxu_work, and the full product) and the plain version's time; library_ms (the bench and
-    no_hit cases) is onehot_product_ms. Then the stress step (mxu_stress).
-    Returns K4's record."""
+def mxu_case_record(name: str, k: int, launch, library: bool) -> dict:
+    """One case of K4 (k = 8) or its any-k kernel: realign.
+    mxu_shared_kmer_mask on mxu_inputs(name, k=k) against the plain version
+    on the card, exactly, and three more launches with the output filled
+    with 2 first, every verdict checked; the launch time (median of 20
+    windows of K2_K3_BATCH launches of launch(r, w, out, k)), its bound
+    (mxu_work at k: 4k multiply-adds a k-mer pair up to each row's first
+    hit, at the int8 tensor-core rate), the full product's bound and the
+    kernel's share of it, the plain version's time and, where library is
+    set, one torch.bmm of the one-hots (onehot_product_ms)."""
     import torch
 
-    from arriba_tpu_torch import kernels
     from arriba_tpu_torch.ops import realign
 
-    cases = {}
-    for name in MXU_CASES:
-        reads, windows = mxu_inputs(name)
-        r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
-        got = realign.mxu_shared_kmer_mask(r, w)
-        want = realign.mxu_shared_kmer_mask_plain(r, w)
-        err = int((got.int() - want.int()).abs().max())
-        work = mxu_work(r, w)
-        hits = int(want.sum())
-        expected = {"no_hit": hits == 0, "bench": hits == len(reads),
-                    "pad": want.cpu().tolist() == [row % 4 == 0 for row in
-                                                   range(len(reads))],
-                    "odd": 0 < hits < len(reads),
-                    "mixed": 0 < hits < len(reads)}[name]
-        if err != 0 or not torch.equal(work["verdict"], want):
-            raise SystemExit(f"K4 disagrees with its plain version ({name})")
-        if not expected:
-            raise SystemExit(f"K4's {name} case does not give its verdicts")
-        out = torch.empty(len(reads), dtype=torch.uint8, device="cuda")
-        ms = cuda_ms(lambda: kernels.launch_mxu_kmer_screen(r, w, out), 20,
-                     batch=K2_K3_BATCH)
-        plain_ms = cuda_ms(lambda: realign.mxu_shared_kmer_mask_plain(r, w),
-                           3)
-        n_bytes = reads.nbytes + windows.nbytes + len(reads)
-        bound_ms, bound_by = bound(n_bytes, 2 * work["macs"],
-                                   INT8_OPS_PER_S)
-        full_ms, _ = bound(n_bytes, 2 * work["full_macs"], INT8_OPS_PER_S)
-        cases[name] = {"rows": len(reads), "width": [reads.shape[1],
-                                                     windows.shape[1]],
-                       "hits": hits, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "macs": work["macs"],
-                       "full_product_bound_ms": full_ms}
-        if name in ("bench", "no_hit"):
-            cases[name]["library_ms"] = onehot_product_ms(r, w)
-        log(f"K4 {name}: {hits}/{len(reads)} rows share an 8-mer, equal to "
-            f"the plain version; {ms:.4f} ms a launch, plain {plain_ms:.4f} "
-            f"ms; {2 * work['macs']} int8 operations to the first hits, "
-            f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%}); full "
-            f"product {full_ms:.4f} ms ({full_ms / ms:.1%})"
-            + (f"; torch.bmm of the one-hots {cases[name]['library_ms']:.4f}"
-               f" ms" if "library_ms" in cases[name] else ""))
+    reads, windows = mxu_inputs(name, k=k)
+    r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
+    got = realign.mxu_shared_kmer_mask(r, w, k)
+    want = realign.mxu_shared_kmer_mask_plain(r, w, k)
+    work = mxu_work(r, w, k)
+    err = int((got.int() - want.int()).abs().max())
+    if err != 0 or not torch.equal(work["verdict"], want):
+        raise SystemExit(f"K4 at k = {k} disagrees with its plain version "
+                         f"({name})")
+    out = torch.empty(len(reads), dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        out.fill_(2)
+        launch(r, w, out, k)
+        if not torch.equal(out, want.to(torch.uint8)):
+            raise SystemExit(f"K4 at k = {k} disagrees on a repeat ({name})")
+    hits = int(want.sum())
+    # every planted row hits (bench: every other row, odd: every third;
+    # pad: exactly the clean plants, every fourth); chance hits come on top
+    expected = {"no_hit": hits == 0, "bench": bool(want[::2].all()),
+                "pad": want.cpu().tolist() == [row % 4 == 0 for row in
+                                               range(len(reads))],
+                "odd": bool(want[::3].all()),
+                "mixed": 0 < hits < len(reads)}[name]
+    if k == 8:
+        # K4's own inputs give their mix too: the chance hits take every
+        # bench row, and case (d) keeps rows with no hit
+        expected &= {"bench": hits == len(reads),
+                     "odd": hits < len(reads)}.get(name, True)
+    if not expected:
+        raise SystemExit(f"K4's {name} case at k = {k} does not give its "
+                         f"verdicts")
+    ms = cuda_ms(lambda: launch(r, w, out, k), 20, batch=K2_K3_BATCH)
+    plain_ms = cuda_ms(lambda: realign.mxu_shared_kmer_mask_plain(r, w, k),
+                       3)
+    n_bytes = reads.nbytes + windows.nbytes + len(reads)
+    bound_ms, bound_by = bound(n_bytes, 2 * work["macs"], INT8_OPS_PER_S)
+    full_ms, _ = bound(n_bytes, 2 * work["full_macs"], INT8_OPS_PER_S)
+    case = {"rows": len(reads), "width": [reads.shape[1], windows.shape[1]],
+            "hits": hits, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "macs": work["macs"],
+            "full_product_bound_ms": full_ms,
+            "full_product_share": full_ms / ms}
+    if library:
+        case["library_ms"] = onehot_product_ms(r, w, k)
+    log(f"K4 k={k} {name}: {hits}/{len(reads)} rows share a k-mer, equal "
+        f"to the plain version; {ms:.4f} ms a launch, plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{bound_ms / ms:.1%}); full product {full_ms:.4f} ms "
+        f"({full_ms / ms:.1%})"
+        + (f"; torch.bmm of the one-hots {case['library_ms']:.4f} ms"
+           if library else ""))
+    return case
+
+
+def check_mxu() -> dict:
+    """K4 on each case of MXU_CASES (mxu_case_record at k = 8; the library
+    call on the bench and no_hit rows), then its stress step (mxu_stress).
+    Returns K4's record, the bench rows its main case."""
+    from arriba_tpu_torch import kernels
+
+    cases = {name: mxu_case_record(name, 8, kernels.launch_mxu_kmer_screen,
+                                   name in ("bench", "no_hit"))
+             for name in MXU_CASES}
     mxu_stress(kernels.launch_mxu_kmer_screen, "this checkout")
     main = cases["bench"]
     return {"name": "mxu_kmer_screen", "route": "cuda",
@@ -1094,73 +1250,57 @@ def check_smith_waterman_wide() -> list:
 
 
 # K4's any-k kernel: the k it is checked and timed at, each on the bench
-# rows (mxu_inputs 'bench') and on case (d) ('odd'), k-mers of that k
-# planted
+# rows (mxu_inputs 'bench'), case (d) ('odd') and rows with no hit
+# ('no_hit', the full product), k-mers of that k planted; at MXU_ANY_MIXED
+# also on 4,096 mixed rows (more rows than blocks), which then go through
+# the stress step (MXU_ANY_STRESS)
 MXU_ANY_K = (1, 4, 12, 16, 31)
+MXU_ANY_CASES = ("bench", "odd", "no_hit")
+MXU_ANY_MIXED = (12, 31)
+
+
+def mxu_any_empty_inputs(k: int):
+    """The bench rows' reads (512 x 152) against windows of k - 1 bytes,
+    on the card: no window holds a k-mer, so a launch of the any-k kernel
+    at k is its grid's fixed cost (every block writes its rows' zeros)."""
+    import torch
+
+    reads, _ = mxu_inputs("bench", k=k)
+    return (torch.from_numpy(reads).to("cuda"),
+            torch.zeros((len(reads), k - 1), dtype=torch.uint8,
+                        device="cuda"))
 
 
 def check_mxu_any_k() -> list:
-    """K4's any-k kernel through realign.mxu_shared_kmer_mask against the
-    plain version on the card, exactly, at each k of MXU_ANY_K on the bench
-    rows and on case (d), each routed before launch (kernels.mxu_route) and
-    launched three more times with the output filled with 2 first, every
-    verdict checked; each case's launch time (median of 20 windows of
-    K2_K3_BATCH launches), its bound (mxu_work at k: 4k multiply-adds a
-    k-mer pair up to each row's first hit, at the int8 tensor-core rate),
-    the full product's bound, the plain version's time and, on the bench
-    rows, one torch.bmm of the one-hots at k (onehot_product_ms). Returns a
-    record a k, the bench rows its main case."""
+    """K4's any-k kernel, each k of MXU_ANY_K routed before launch
+    (kernels.mxu_route), on each case of MXU_ANY_CASES and, at each k of
+    MXU_ANY_MIXED, on 4,096 mixed rows (mxu_case_record; the library call
+    on the bench and no_hit rows), and the time of an empty launch of its
+    grid (mxu_any_empty_inputs, as mxu_case_record times); then its stress
+    step (mxu_stress on MXU_ANY_STRESS). Returns a record a k, the bench
+    rows its main case."""
     import torch
 
     from arriba_tpu_torch import kernels
-    from arriba_tpu_torch.ops import realign
 
     records = []
     for k in MXU_ANY_K:
         if kernels.mxu_route(k) != "mxu_kmer_screen_any_k":
             raise SystemExit(f"k = {k} does not route to the any-k kernel")
-        cases = {}
-        for name in ("bench", "odd"):
-            reads, windows = mxu_inputs(name, k=k)
-            r, w = (torch.from_numpy(x).to("cuda") for x in (reads, windows))
-            got = realign.mxu_shared_kmer_mask(r, w, k)
-            want = realign.mxu_shared_kmer_mask_plain(r, w, k)
-            work = mxu_work(r, w, k)
-            err = int((got.int() - want.int()).abs().max())
-            if err != 0 or not torch.equal(work["verdict"], want):
-                raise SystemExit(f"K4 at k = {k} disagrees with its plain "
-                                 f"version ({name})")
-            out = torch.empty(len(reads), dtype=torch.uint8, device="cuda")
-            for _ in range(3):
-                out.fill_(2)
-                kernels.launch_mxu_kmer_screen(r, w, out, k)
-                if not torch.equal(out, want.to(torch.uint8)):
-                    raise SystemExit(f"K4 at k = {k} disagrees on a repeat "
-                                     f"({name})")
-            ms = cuda_ms(lambda: kernels.launch_mxu_kmer_screen(r, w, out, k),
-                         20, batch=K2_K3_BATCH)
-            plain_ms = cuda_ms(
-                lambda: realign.mxu_shared_kmer_mask_plain(r, w, k), 3)
-            n_bytes = reads.nbytes + windows.nbytes + len(reads)
-            bound_ms, bound_by = bound(n_bytes, 2 * work["macs"],
-                                       INT8_OPS_PER_S)
-            full_ms, _ = bound(n_bytes, 2 * work["full_macs"], INT8_OPS_PER_S)
-            hits = int(want.sum())
-            cases[name] = {"rows": len(reads), "width": [reads.shape[1],
-                                                         windows.shape[1]],
-                           "hits": hits, "max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "macs": work["macs"],
-                           "full_product_bound_ms": full_ms}
-            if name == "bench":
-                cases[name]["library_ms"] = onehot_product_ms(r, w, k)
-            log(f"K4 k={k} {name}: {hits}/{len(reads)} rows share a k-mer, "
-                f"equal to the plain version; {ms:.4f} ms a launch, plain "
-                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
-                f"{bound_ms / ms:.1%}); full product {full_ms:.4f} ms"
-                + (f"; torch.bmm of the one-hots "
-                   f"{cases[name]['library_ms']:.4f} ms"
-                   if name == "bench" else ""))
+        names = MXU_ANY_CASES + (("mixed",) if k in MXU_ANY_MIXED else ())
+        cases = {name: mxu_case_record(name, k,
+                                       kernels.launch_mxu_kmer_screen,
+                                       name in ("bench", "no_hit"))
+                 for name in names}
+        r, w = mxu_any_empty_inputs(k)
+        out = torch.ones(len(r), dtype=torch.uint8, device="cuda")
+        empty_ms = cuda_ms(lambda: kernels.launch_mxu_kmer_screen(r, w, out,
+                                                                  k),
+                           20, batch=K2_K3_BATCH)
+        if bool(out.any()):
+            raise SystemExit(f"K4 at k = {k} finds a k-mer in windows of "
+                             f"{k - 1} bytes")
+        log(f"K4 k={k}: an empty launch of its grid {empty_ms:.4f} ms")
         main = cases["bench"]
         records.append({
             "name": f"mxu_kmer_screen_any_k k={k}", "route": "cuda",
@@ -1171,7 +1311,9 @@ def check_mxu_any_k() -> list:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "full_product_bound_ms": main["full_product_bound_ms"],
-            "cases": cases})
+            "empty_ms": empty_ms, "cases": cases})
+    mxu_stress(kernels.launch_mxu_kmer_screen, "any-k, this checkout",
+               MXU_ANY_STRESS)
     return records
 
 
@@ -1209,6 +1351,90 @@ def check_accept_variants() -> list:
             "walk_all_bound_ms": summary["walk_all_bound_ms"],
             "cases": {name: summary}})
     return records
+
+
+# K2's long-row kernel's phase-2 batch: reads of 4,000 codes, past the
+# packed counters' 3,072
+LE_LONG_SHAPE = (8192, 4000)
+
+
+def le_long_inputs(n: int, L: int, seed: int = 11):
+    """(packed uint8 [n, L / 4], meta int32 [n, 8]) on the card for K2's
+    long-row kernel: low_entropy_inputs at that shape (codes 0-3, a few N,
+    a tenth of the reads shorter, a fiftieth low-entropy motifs) with the
+    thresholds of kmer_content 0.6, and the codes."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch.ops import readfilters
+
+    codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs(seed=seed, n=n,
+                                                            L=L)
+    th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
+    meta = np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1).astype(np.int32)
+    return (torch.from_numpy(readfilters.pack_codes(codes)).to("cuda"),
+            torch.from_numpy(meta).to("cuda"), codes)
+
+
+def check_low_entropy_long() -> dict:
+    """K2's long-row kernel (rows past LE_PACKED_MAX_CODES codes, routed
+    before launch by kernels.le_route) at LE_LONG_SHAPE through
+    readfilters._low_entropy_core_packed against the plain version on the
+    card, exactly; its time (median of 20 windows of K2_K3_BATCH launches),
+    the plain version's (one call) and its bound: the packed rows, meta and
+    verdicts once each against the fewer of the function's operations on
+    these rows (le_long_ops: walking each read to its first threshold, or
+    whole). Returns its record."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import readfilters
+
+    n, L = LE_LONG_SHAPE
+    packed, meta, codes = le_long_inputs(n, L)
+    if kernels.le_route(packed.shape[1]) != "low_entropy_long":
+        raise SystemExit(f"rows of {L} codes do not route to K2's long-row "
+                         f"kernel")
+    got = readfilters._low_entropy_core_packed(packed, L, meta)
+    want = readfilters._low_entropy_core_plain(
+        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
+    work = le_long_work(packed, *meta.unbind(dim=1))
+    err = int((got.int() - want.int()).abs().max())
+    n_flag = int(want.sum())
+    if err != 0 or not torch.equal(work["verdict"], want) or not (
+            0 < n_flag < n):
+        raise SystemExit("K2's long-row kernel disagrees with its plain "
+                         "version, le_long_work disagrees with both, or the "
+                         "input does not exercise both verdicts")
+    out = torch.empty(n, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: kernels.launch_low_entropy(packed, meta, out), 20,
+                 batch=K2_K3_BATCH)
+    plain_ms = cuda_ms(lambda: readfilters._low_entropy_core_plain(
+        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1)), 1,
+        warm_up=False)
+    ops = le_long_ops(work, n)
+    n_ops = min(ops.values())
+    n_bytes = packed.numel() + meta.numel() * 4 + n
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"K2 low_entropy_long: {n_flag}/{n} reads of {L} codes flagged, "
+        f"equal to the plain version; {ms:.4f} ms a launch, plain "
+        f"{plain_ms:.4f} ms; {work['positions']} positions walked "
+        f"({work['selected']} selected, {work['segment_counts']} segment "
+        f"counts; {work['eligible']} eligible), {ops['stop']} integer "
+        f"operations to the first thresholds, {ops['end']} to the ends: "
+        f"bound {bound_ms:.4f} ms "
+        f"({bound_by}, {bound_ms / ms:.1%})")
+    return {"name": "low_entropy_long", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/low_entropy.cu",
+            "replaces": "arriba_tpu/ops/readfilters.py:206",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": {"long": {"rows": n, "codes": L, "flagged": n_flag,
+                               "positions": work["positions"],
+                               "selected": work["selected"],
+                               "segment_counts": work["segment_counts"],
+                               "eligible": work["eligible"],
+                               "operations": ops}}}
 
 
 def check_kernels() -> list:
@@ -1285,6 +1511,8 @@ def check_kernels() -> list:
         "replaces": "arriba_tpu/ops/readfilters.py:206",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # its long-row kernel, on rows past the packed counters' 3,072 codes
+    records.append(check_low_entropy_long())
 
     # K3: Smith-Waterman scores at the dry run's shape
     from arriba_tpu_torch.ops.encode import PAD_CODE
@@ -1710,6 +1938,36 @@ def mxu_any_k_path() -> dict:
     return launches
 
 
+def low_entropy_long_path(n: int = 2048) -> int:
+    """readfilters.low_entropy_batch_chunked, the read cascade's call, on
+    n reads of LE_LONG_SHAPE's 4,000 codes (le_long_inputs), on the card,
+    against the plain version there. Returns the launches of K2's long-row
+    kernel in it, counted from 0."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import readfilters
+
+    packed, meta, codes = le_long_inputs(n, LE_LONG_SHAPE[1], seed=13)
+    host = meta.cpu().numpy()
+    kernels.reset_launch_counts()
+    flags = readfilters.low_entropy_batch_chunked(
+        codes, *(host[:, i] for i in range(5)), 0.6,
+        device=torch.device("cuda"))
+    launches = kernels.launch_counts["low_entropy_long"]
+    want = readfilters._low_entropy_core_plain(
+        readfilters._unpack_codes(packed, codes.shape[1]),
+        *meta.unbind(dim=1)).cpu().numpy()
+    if not np.array_equal(flags, want):
+        raise SystemExit("the low-entropy scan on reads of 4,000 codes "
+                         "disagrees with the plain version")
+    log(f"low-entropy scan on {n} reads of {codes.shape[1]} codes: "
+        f"{int(flags.sum())} flagged, equal to the plain version; kernel "
+        f"launches {dict(kernels.launch_counts)}")
+    return launches
+
+
 def accept_path() -> int:
     """realign.accept_wavefront, the op, on accept_many_rows_inputs (70,000
     rows of 64 x 64 in one launch, a quarter of them with min_score
@@ -1938,8 +2196,11 @@ def against_cases(kernel: str) -> dict:
     C entry point before the stream, setup run before each launch or None,
     a check that the output equals the plain version's, and None or this
     checkout's own (entry point, arguments) where they differ)}. K1: the
-    main, low-complexity and mixed batches; K2 and K3: their phase-2
-    batch; K4: its phase-2 cases (MXU_CASES); K3w: SWW_CASES, the other
+    main, low-complexity and mixed batches; K2: its phase-2 batch and its
+    long-row kernel's (LE_LONG_SHAPE, through arriba_low_entropy_long
+    where a build has it); K3: its phase-2 batch; K4: its
+    phase-2 cases (MXU_CASES); its any-k kernel: MXU_ANY_CASES at each k of
+    MXU_ANY_K and the mixed rows at MXU_ANY_MIXED; K3w: SWW_CASES, the other
     build through its 32-bit entry point, this checkout through the width
     sw_route picks, as does any other build that has that entry point (the
     output set to -1 before each launch)."""
@@ -1973,6 +2234,18 @@ def against_cases(kernel: str) -> dict:
         cases["main"] = ((packed, meta, out, *packed.shape), None,
                          lambda: torch.equal(out.view(torch.bool), want),
                          None)
+        # the long-row kernel, through its own entry point where a build
+        # has one (an older build's arriba_low_entropy routes inside)
+        packed, meta, _ = le_long_inputs(*LE_LONG_SHAPE)
+        out_long = torch.empty(len(packed), dtype=torch.uint8, device=cuda)
+        want_long = readfilters._low_entropy_core_plain(
+            readfilters._unpack_codes(packed, LE_LONG_SHAPE[1]),
+            *meta.unbind(dim=1))
+        args = (packed, meta, out_long, *packed.shape)
+        cases["long"] = (args, None,
+                         lambda: torch.equal(out_long.view(torch.bool),
+                                             want_long),
+                         ("low_entropy_long", args))
     elif kernel == "smith_waterman":
         r, w = (torch.from_numpy(x).to(cuda) for x in smith_waterman_inputs())
         out = torch.empty(len(r), dtype=torch.int32, device=cuda)
@@ -1987,6 +2260,27 @@ def against_cases(kernel: str) -> dict:
             cases[name] = ((r, w, out, *r.shape, w.shape[1]), None,
                            lambda out=out, want=want: torch.equal(
                                out.view(torch.bool), want), None)
+    elif kernel == "mxu_kmer_screen_any_k":
+        ks = {name: MXU_ANY_K for name in MXU_ANY_CASES}
+        ks["mixed"] = MXU_ANY_MIXED
+        for name, at in ks.items():
+            for k in at:
+                r, w = (torch.from_numpy(x).to(cuda)
+                        for x in mxu_inputs(name, k=k))
+                out = torch.empty(len(r), dtype=torch.uint8, device=cuda)
+                want = realign.mxu_shared_kmer_mask_plain(r, w, k)
+                cases[f"{name} k={k}"] = (
+                    (r, w, out, *r.shape, w.shape[1], k), None,
+                    lambda out=out, want=want: torch.equal(
+                        out.view(torch.bool), want), None)
+        # an empty launch of each k's grid: windows of k - 1 bytes hold no
+        # k-mer, so every block writes its rows' zeros and ends
+        for k in MXU_ANY_K:
+            r, w = mxu_any_empty_inputs(k)
+            out = torch.empty(len(r), dtype=torch.uint8, device=cuda)
+            cases[f"empty k={k}"] = (
+                (r, w, out, *r.shape, w.shape[1], k), None,
+                lambda out=out: not bool(out.any()), None)
     elif kernel == "smith_waterman_wide":
         from arriba_tpu_torch import kernels
 
@@ -2004,8 +2298,9 @@ def against_cases(kernel: str) -> dict:
                          *shape)))
     else:
         raise SystemExit(f"--against takes accept_wavefront, low_entropy, "
-                         f"smith_waterman, smith_waterman_wide or "
-                         f"mxu_kmer_screen, not {kernel}")
+                         f"smith_waterman, smith_waterman_wide, "
+                         f"mxu_kmer_screen or mxu_kmer_screen_any_k, not "
+                         f"{kernel}")
     return cases
 
 
@@ -2014,13 +2309,14 @@ def compare(kernel: str, sources: list) -> None:
     its phase-2 inputs (against_cases). A source is a csrc directory whose
     <kernel>.cu has this checkout's C entry point, such as an earlier
     commit's; where a case names this checkout's own entry point (K3w's
-    16-bit pairs), a source that has it runs it too. Every build must give the plain version's output. Each case
-    times the launches (median of 20 windows of K2_K3_BATCH, or of single
+    16-bit pairs, K2's long-row kernel), a source that has it runs it too.
+    Every build must give the plain version's output. Each case times the
+    launches (median of 20 windows of K2_K3_BATCH, or of single
     launches where the output is zeroed before each) in the order this
     checkout, the sources, the sources reversed, this checkout, and one
     JSON line gives the mean of each build's two times. K4's builds first
-    go through the stress step each (mxu_stress), which checks every
-    verdict of every repeat."""
+    go through the stress step each (mxu_stress; MXU_ANY_STRESS for its
+    any-k kernel), which checks every verdict of every repeat."""
     import ctypes
 
     import torch
@@ -2028,15 +2324,16 @@ def compare(kernel: str, sources: list) -> None:
     from arriba_tpu_torch.kernels import build
 
     symbol, argtypes = build._SIGNATURES[kernel]
+    library = build._LIBRARIES.get(kernel, kernel)
     procs = []
     for k, source in enumerate(sources):
         target = REPO / "build" / "against" / kernel / str(k) / "lib.so"
         target.parent.mkdir(parents=True, exist_ok=True)
         procs.append((source, target, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
-             str(pathlib.Path(source) / f"{kernel}.cu")],
+             str(pathlib.Path(source) / f"{library}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    for _, ptxas in build.build((kernel,)).values():
+    for _, ptxas in build.build((library,)).values():
         for line in ptxas_lines(ptxas):
             log(f"built this checkout: {line}")
     entries = {"this checkout": build.load(kernel)[0]}
@@ -2074,14 +2371,18 @@ def compare(kernel: str, sources: list) -> None:
         return launch
 
     result = {}
-    if kernel == "mxu_kmer_screen":
+    if kernel in ("mxu_kmer_screen", "mxu_kmer_screen_any_k"):
+        any_k = kernel == "mxu_kmer_screen_any_k"
+
         def stress_launch(label):
-            def launch(r, w, out):
-                launcher(label, (r, w, out, *r.shape, w.shape[1]))()
+            def launch(r, w, out, k):
+                launcher(label, (r, w, out, *r.shape, w.shape[1])
+                         + ((k,) if any_k else ()))()
             return launch
 
         result["stress_launches"] = {
-            label: mxu_stress(stress_launch(label), label)
+            label: mxu_stress(stress_launch(label), label,
+                              MXU_ANY_STRESS if any_k else MXU_STRESS)
             for label in entries}
     for name, (args, setup, check, own) in against_cases(kernel).items():
         times: dict = {label: [] for label in entries}
@@ -2197,9 +2498,11 @@ def instruction_rates() -> None:
 
 
 def ptxas_lines(report: str) -> list:
-    """ptxas's register, shared memory and spill lines of an nvcc log"""
+    """ptxas's function, register, spill and performance-loss lines of an
+    nvcc log"""
     return [line.strip() for line in report.splitlines()
-            if "registers" in line or "spill" in line]
+            if any(word in line for word in ("Compiling entry", "registers",
+                                             "spill", "Performance Loss"))]
 
 
 def main() -> int:
@@ -2314,6 +2617,7 @@ def main() -> int:
     for name in ("every_diagonal", "rows_70000"):
         launches[f"accept_wavefront {name}"] = count
     launches["smith_waterman_wide"] = sww_path()
+    launches["low_entropy_long"] = low_entropy_long_path()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     # phase 7: the cohort runner, every worker on the card
@@ -2345,12 +2649,13 @@ def main() -> int:
 
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     # K1 adds its every-diagonal bound, K4 its full-product bound and phase
-    # 6's time of the sorted screen, K3w its 32-bit lanes' time and their
-    # bound, all their phase-2 cases
+    # 6's time of the sorted screen, its any-k kernel an empty launch's
+    # time, K3w its 32-bit lanes' time and their bound, all their phase-2
+    # cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "walk_all_bound_ms", "full_product_bound_ms", "sorted_screen_ms",
-            "ms_32", "bound_32_ms", "cases")
+            "empty_ms", "ms_32", "bound_32_ms", "cases")
     print(json.dumps({"kernels": [{key: record[key] for key in keys
                                    if key in record}
                                   for record in records]}))

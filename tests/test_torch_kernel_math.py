@@ -17,7 +17,8 @@ shuffle does, with the host emulations of the 16x2 instructions; K3w:
 the 32 lanes of a warp over one row in int32, the read in tiles whose last
 row is carried to the next through a carry row; K4: its warpgroup's
 products emulated from its layouts, at k = 8 and, for its any-k kernel,
-at other k with biased digits; K1's rows that walk every diagonal), and
+at other k with biased digits, both through their copy rings stage by
+stage; K1's rows that walk every diagonal), and
 the results are held, exactly, against the port's plain PyTorch versions
 and the JAX package's ops.
 """
@@ -267,17 +268,10 @@ static void sww16_pair(const uint8_t* a, const uint8_t* b, const uint8_t* wa,
     }
 }
 
-// K4's any-k kernel on its rows (mxu_kmer_screen_any_kernel): per row,
-// per slab of MK_N read k-mers, per group of plan.groups window tiles, the
-// accumulator started at plan.bias; per chunk of plan.kchunk k-steps the
-// scaled B images written from mk_any_b_word (at the group's first chunk
-// when they hold every k-step, at every chunk otherwise), and per k-step
-// each tile's 128 threads' scaled A (mk_any_a_fragment) scattered by the A
-// layout, its B read back through the descriptor's fields from image
-// mk_any_image, the product added into the accumulator; then the fold,
-// and plan.mask for the vote. first_tile: the first tile with a hit in
-// the row's order (slab x the window's tiles + tile; the digit names the
-// tile), -1 for none.
+// K4's any-k kernel's product of one tile of one k-step: the 128 threads'
+// scaled A fragments scattered by the A layout, its B read back from the
+// image through the descriptor's fields (the image at shared address
+// base), added into the accumulator D as the wgmma adds it
 static void mk_any_tile(const uint32_t a[128][4], const uint8_t* image,
                         uint32_t base, int32_t D[64][arriba::MK_N]) {
     static int8_t A[64][32], B[32][arriba::MK_N];
@@ -394,85 +388,276 @@ void mk_plan_fields(int k, int64_t* out) {
     }
 }
 
-void mk_any_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
-                 int64_t* first_tile, int n, int L, int W, int k) {
+// mk_any_layout's fields: chunk, groups, parts, bases, read_slot,
+// window_slot, words, read_at, window_at, words_at, bytes
+void mk_any_layout_fields(int k, int64_t* out) {
+    const arriba::MkAnyLayout s = arriba::mk_any_layout(arriba::mk_plan(k));
+    const int64_t fields[] = {s.chunk, s.groups, s.parts, s.bases,
+                              s.read_slot, s.window_slot, s.words, s.read_at,
+                              s.window_at, s.words_at, s.bytes};
+    for (int i = 0; i < 11; ++i) out[i] = fields[i];
+}
+
+// mk_any_bytes at k for the k-mers first .. first + kmers - 1 of a row of
+// n bytes, k-steps from c0: (start, count)
+void mk_any_bytes_of(int k, int first, int kmers, int c0, int n,
+                     int64_t* out) {
+    const arriba::MkBytes b = arriba::mk_any_bytes(arriba::mk_plan(k), first,
+                                                   kmers, c0, n);
+    out[0] = b.start;
+    out[1] = b.count;
+}
+
+// the stages block of grid copies, in order, for n rows of L and W bytes
+// at k (MkCursor over slab x chunk x part), the rows in decided_at decided
+// by a hit at their stage decided_at[row] (-1: never): (row, slab, chunk,
+// part) each, up to max_stages; returns how many
+int mk_any_schedule(int n, int grid, int block, int L, int W, int k,
+                    const int32_t* decided_at, int32_t* out,
+                    int max_stages) {
     const arriba::MkPlan p = arriba::mk_plan(k);
+    const arriba::MkAnyLayout lay = arriba::mk_any_layout(p);
     const int slabs = (arriba::mk_any_kmers(L, k) + arriba::MK_N - 1)
                       / arriba::MK_N;
-    const int tiles = (arriba::mk_any_kmers(W, k) + 63) / 64;
-    const int groups = (tiles + p.groups - 1) / p.groups;
+    const int chunks = (arriba::mk_any_kmers(W, k) + lay.chunk - 1)
+                       / lay.chunk;
+    if (slabs == 0 || chunks == 0) return 0;
+    arriba::MkCursor cursor = {block, 0, 0};
+    int decided = -1, count = 0, seen_of_row = 0, row = -1;
+    while (count < max_stages) {
+        const arriba::MkStage s = cursor.next(n, grid, slabs,
+                                              chunks * lay.parts, decided);
+        if (s.row < 0) break;
+        if (s.row != row) {
+            row = s.row;
+            seen_of_row = 0;
+        }
+        out[4 * count] = s.row;
+        out[4 * count + 1] = s.slab;
+        out[4 * count + 2] = s.chunk / lay.parts;
+        out[4 * count + 3] = s.chunk % lay.parts;
+        ++count;
+        if (seen_of_row++ == decided_at[s.row]) decided = s.row;
+    }
+    return count;
+}
+
+// the A matrix (16 x 32, int8) a warp's fragments of k-step s lay out for
+// the 16 window k-mers of a stage from its k-mer t0, from the one-hot word
+// table of the stage's n bytes (part from k-step c0), scaled by 2^shift
+void mk_any_a_matrix(const uint8_t* bytes, int n, int k, int t0, int s,
+                     int c0, int shift, int8_t* out) {
+    const arriba::MkPlan p = arriba::mk_plan(k);
+    std::vector<uint32_t> words(t0 + 16 + 8 * (s - c0) + 8);
+    for (size_t i = 0; i < words.size(); ++i) {
+        words[i] = arriba::mk_word(bytes, n, (int)i);
+    }
+    for (int lane = 0; lane < 32; ++lane) {
+        uint32_t a[4];
+        arriba::mk_any_a_words(p, words.data(), t0, s, c0, lane, a, shift);
+        for (int r = 0; r < 4; ++r) {
+            for (int byte = 0; byte < 4; ++byte) {
+                out[arriba::mk_a_row(lane, r) * 32
+                    + arriba::mk_a_col(lane, r, byte)] =
+                    (int8_t)(a[r] >> (8 * byte));
+            }
+        }
+    }
+}
+
+// K4's any-k kernel on its rows as its blocks schedule them
+// (mxu_kmer_screen_any_kernel): block b of grid takes rows b, b + grid,
+// ... in the order of its MkCursor over (slab, chunk x part), through a
+// ring of MK_STAGES slots filled MK_STAGES - 1 stages ahead of the stage in
+// use (a slot's fills counted as its mbarrier's phases), skipping what is
+// left of a row once a vote decides it. Each stage's bytes are only those
+// the kernel copies (mk_any_bytes; the slot's other bytes code 0, which a
+// read outside the copied bytes would turn into false hits or lost ones).
+// Where they change (a slab's first stage, or every stage when a row has
+// more than one part) the scaled B images of the stage's k-steps from the
+// staged read bytes (mk_any_b_word), kept across stages as the kernel
+// keeps them in shared memory; at every stage the window's one-hot word
+// table (mk_word); then each group of the stage: at a (slab, chunk)'s first
+// part the accumulator from the plan's bias, every k-step of the part for
+// every tile of the group into it (each tile's 128 threads' A from the
+// table, mk_any_a_words, its B through the descriptor from image
+// mk_any_image), and at the last part the test (mk_any_hit), OR-ed into
+// the stage's seen, and the block's vote after every group. The row
+// stops at the vote after its first hit: first_tile[row] is that hit's
+// tile in the row's order (slab s, window tile t: s x the window's tiles +
+// t; a group's digits name the tile), -1 for none. Returns the schedule's
+// faults: a wait on a slot whose fill has not come or came twice, a slot
+// refilled before its stage was taken, a copy in flight when the block
+// ends, a stage multiplied against the images of another (row, slab,
+// part), a part that takes up an accumulator another (row, slab, chunk)
+// left, a verdict written other than once a row.
+int mk_any_rows(const uint8_t* reads, const uint8_t* windows, uint8_t* out,
+                int64_t* first_tile, int n, int L, int W, int k, int grid) {
+    const arriba::MkPlan p = arriba::mk_plan(k);
+    const arriba::MkAnyLayout lay = arriba::mk_any_layout(p);
+    const int slabs = (arriba::mk_any_kmers(L, k) + arriba::MK_N - 1)
+                      / arriba::MK_N;
+    const int wk = arriba::mk_any_kmers(W, k);
+    const int chunks = (wk + lay.chunk - 1) / lay.chunk;
+    const int window_tiles = (wk + 63) / 64;
     const int span = p.groups * 64;
     const uint32_t base = 0x400;
     std::vector<uint8_t> images((size_t)p.images * p.kchunk
                                 * arriba::MK_IMAGE);
+    std::vector<uint8_t> staged_read(lay.read_slot);
+    std::vector<uint8_t> staged_window(lay.window_slot);
+    std::vector<uint32_t> words(lay.words);
+    std::vector<int> written(n, 0);
     static int32_t D[64][arriba::MK_N];
     static uint32_t a[128][4];
-    for (int row = 0; row < n; ++row) {
-        const uint8_t* read = reads + (long)row * L;
-        const uint8_t* window = windows + (long)row * W;
-        first_tile[row] = -1;
-        for (int slab = 0; slab < slabs && first_tile[row] < 0; ++slab) {
-            for (int g = 0; g < groups && first_tile[row] < 0; ++g) {
-                for (int i = 0; i < 64; ++i) {
-                    for (int c = 0; c < arriba::MK_N; ++c) D[i][c] = p.bias;
-                }
-                for (int c0 = 0; c0 < p.ksteps; c0 += p.kchunk) {
-                    const int c_n = std::min(p.kchunk, p.ksteps - c0);
-                    if (g == 0 || p.kchunk < p.ksteps) {
-                        for (int s = 0; s < c_n; ++s) {
-                            for (int w = 0; w < arriba::MK_IMAGE / 4; ++w) {
-                                const uint32_t word = arriba::mk_any_b_word(
-                                    read, L, slab * arriba::MK_N, k, c0 + s,
-                                    w);
-                                for (int i = 0; i < p.images; ++i) {
-                                    const uint32_t scaled =
-                                        word << arriba::mk_any_b_shift(i);
-                                    uint8_t* at = &images[
-                                        (size_t)(i * p.kchunk + s)
-                                        * arriba::MK_IMAGE + 4 * w];
-                                    for (int b = 0; b < 4; ++b) {
-                                        at[b] = (uint8_t)(scaled >> (8 * b));
-                                    }
-                                }
+    int faults = 0;
+    for (int row = 0; row < n; ++row) first_tile[row] = -1;
+    if (slabs == 0 || chunks == 0) {
+        for (int row = 0; row < n; ++row) out[row] = 0;
+        return 0;
+    }
+    for (int block = 0; block < grid; ++block) {
+        arriba::MkCursor cursor = {block, 0, 0};
+        arriba::MkStage ring[arriba::MK_STAGES];
+        int fills[arriba::MK_STAGES] = {};     // the slot's phases completed
+        bool in_flight[arriba::MK_STAGES] = {};
+        int decided = -1;
+        int image_of[3] = {-1, -1, -1};        // row, slab, part
+        int acc_of[4] = {-1, -1, -1, -1};      // row, slab, chunk, next part
+        auto issue = [&](int i) {
+            const int slot = i % arriba::MK_STAGES;
+            ring[slot] = cursor.next(n, grid, slabs, chunks * lay.parts,
+                                     decided);
+            if (ring[slot].row >= 0) {
+                faults += in_flight[slot];
+                in_flight[slot] = true;
+                ++fills[slot];
+            }
+        };
+        for (int i = 0; i < arriba::MK_STAGES - 1; ++i) issue(i);
+        for (int i = 0;; ++i) {
+            issue(i + arriba::MK_STAGES - 1);
+            const int slot = i % arriba::MK_STAGES;
+            const arriba::MkStage s = ring[slot];
+            if (s.row < 0) break;
+            // the kernel waits for phase i / MK_STAGES of the slot's
+            // mbarrier by its parity: exactly that many fills before it
+            faults += fills[slot] != i / arriba::MK_STAGES + 1;
+            faults += !in_flight[slot];
+            in_flight[slot] = false;
+            if (s.row == decided) continue;
+            const int chunk = s.chunk / lay.parts;
+            const int part = s.chunk % lay.parts;
+            const int c0 = part * p.kchunk;
+            const int kc = std::min(p.kchunk, p.ksteps - c0);
+            if (lay.parts > 1 || s.chunk == 0) {
+                const arriba::MkBytes rb = arriba::mk_any_bytes(
+                    p, s.slab * arriba::MK_N, arriba::MK_N, c0, L);
+                std::fill(staged_read.begin(), staged_read.end(), 0);
+                std::copy(reads + (long)s.row * L + rb.start,
+                          reads + (long)s.row * L + rb.start + rb.count,
+                          staged_read.begin());
+                for (int step = 0; step < kc; ++step) {
+                    for (int w = 0; w < arriba::MK_IMAGE / 4; ++w) {
+                        const uint32_t word = arriba::mk_any_b_word(
+                            p, staged_read.data(), rb.count, c0 + step, c0,
+                            w);
+                        for (int im = 0; im < p.images; ++im) {
+                            const uint32_t scaled =
+                                word << arriba::mk_any_b_shift(im);
+                            uint8_t* at = &images[
+                                (size_t)(im * p.kchunk + step)
+                                * arriba::MK_IMAGE + 4 * w];
+                            for (int b = 0; b < 4; ++b) {
+                                at[b] = (uint8_t)(scaled >> (8 * b));
                             }
                         }
                     }
-                    for (int s = 0; s < c_n; ++s) {
-                        for (int j = 0; j < p.groups; ++j) {
-                            for (int thread = 0; thread < 128; ++thread) {
-                                arriba::mk_any_a_fragment(
-                                    window, W, g * span + j * 64
-                                                   + 16 * (thread >> 5),
-                                    k, c0 + s, thread & 31, a[thread],
-                                    arriba::mk_any_a_shift(p, j));
-                            }
-                            const int image = arriba::mk_any_image(p, j);
-                            mk_any_tile(a, &images[(size_t)(image * p.kchunk
-                                                            + s)
-                                                   * arriba::MK_IMAGE],
-                                        base, D);
+                }
+                image_of[0] = s.row;
+                image_of[1] = s.slab;
+                image_of[2] = part;
+            }
+            faults += image_of[0] != s.row || image_of[1] != s.slab
+                      || image_of[2] != part;
+            const int q0 = chunk * lay.chunk;
+            const arriba::MkBytes wb = arriba::mk_any_bytes(p, q0, lay.chunk,
+                                                            c0, W);
+            std::fill(staged_window.begin(), staged_window.end(), 0);
+            std::copy(windows + (long)s.row * W + wb.start,
+                      windows + (long)s.row * W + wb.start + wb.count,
+                      staged_window.begin());
+            for (int x = 0; x < lay.words; ++x) {
+                words[x] = arriba::mk_word(staged_window.data(), wb.count, x);
+            }
+            const int groups = std::min(lay.groups,
+                                        (wk - q0 + span - 1) / span);
+            bool hit = false, seen = false;
+            for (int g = 0; g < groups && !hit; ++g) {
+                if (part == 0) {
+                    for (int r = 0; r < 64; ++r) {
+                        for (int c = 0; c < arriba::MK_N; ++c) {
+                            D[r][c] = p.bias;
+                        }
+                    }
+                    acc_of[0] = s.row;
+                    acc_of[1] = s.slab;
+                    acc_of[2] = chunk;
+                } else {
+                    faults += acc_of[0] != s.row || acc_of[1] != s.slab
+                              || acc_of[2] != chunk || acc_of[3] != part;
+                }
+                acc_of[3] = part + 1;
+                for (int step = c0; step < c0 + kc; ++step) {
+                    for (int j = 0; j < p.groups; ++j) {
+                        for (int thread = 0; thread < 128; ++thread) {
+                            arriba::mk_any_a_words(
+                                p, words.data(),
+                                g * span + j * 64 + 16 * (thread >> 5), step,
+                                c0, thread & 31, a[thread],
+                                arriba::mk_any_a_shift(p, j));
+                        }
+                        const int im = arriba::mk_any_image(p, j);
+                        mk_any_tile(a, &images[(size_t)(im * p.kchunk
+                                                        + step - c0)
+                                               * arriba::MK_IMAGE],
+                                    base, D);
+                    }
+                }
+                if (part != lay.parts - 1) continue;
+                bool group_hit = false;
+                uint32_t fold = 0;
+                for (int r = 0; r < 64; ++r) {
+                    group_hit |= arriba::mk_any_hit<arriba::MK_N>(p, D[r]);
+                    fold = arriba::mk_fold<arriba::MK_N>(fold, D[r]);
+                }
+                if (group_hit && first_tile[s.row] < 0) {
+                    for (int j = 0; j < p.groups; ++j) {
+                        if (p.groups == 1
+                            || fold >> (p.digit - 1 + p.digit * j) & 1u) {
+                            first_tile[s.row] =
+                                (int64_t)s.slab * window_tiles + q0 / 64
+                                + g * p.groups + j;
+                            break;
                         }
                     }
                 }
-                bool hit = false;
-                uint32_t seen = 0;
-                for (int i = 0; i < 64; ++i) {
-                    hit |= arriba::mk_any_hit<arriba::MK_N>(p, D[i]);
-                    seen = arriba::mk_fold<arriba::MK_N>(seen, D[i]);
-                }
-                if (!hit) continue;
-                for (int j = 0; j < p.groups; ++j) {
-                    if (p.groups == 1
-                        || seen >> (p.digit - 1 + p.digit * j) & 1u) {
-                        first_tile[row] = (int64_t)slab * tiles
-                                          + g * p.groups + j;
-                        break;
-                    }
-                }
+                seen |= group_hit;
+                hit = seen;
+            }
+            if (hit) decided = s.row;
+            if (hit || (s.slab == slabs - 1
+                        && s.chunk == chunks * lay.parts - 1)) {
+                out[s.row] = hit;
+                ++written[s.row];
             }
         }
-        out[row] = first_tile[row] >= 0;
+        for (int slot = 0; slot < arriba::MK_STAGES; ++slot) {
+            faults += in_flight[slot];
+        }
     }
+    for (int row = 0; row < n; ++row) faults += written[row] != 1;
+    return faults;
 }
 
 // K1's work per row: every diagonal delta = j - i of the row, OR-reduced
@@ -602,6 +787,9 @@ void le_rows(const uint8_t* packed, const int32_t* meta, uint8_t* out,
                                   1);
     }
 }
+
+// the widest rows, in codes, K2's packed entry point takes
+int le_packed_max_codes() { return arriba::LE_PACKED_MAX_CODES; }
 
 // K2's work per row as the kernel does it, the route following the row
 // width as the kernel's dispatch does: rows of at most 3,072 codes through
@@ -911,6 +1099,7 @@ def harness(tmp_path_factory):
     lib.aw_rows_diagonals.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_rows_kernel.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.le_packed_max_codes.restype = ctypes.c_int
     lib.sw_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     lib.sw_primitive.argtypes = [ctypes.c_int] + [ctypes.c_uint32] * 3
     lib.sw_primitive.restype = ctypes.c_uint32
@@ -922,7 +1111,13 @@ def harness(tmp_path_factory):
     lib.sww_plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     lib.mk_plan_fields.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.mk_any_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    lib.mk_any_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    lib.mk_any_layout_fields.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.mk_any_bytes_of.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mk_any_schedule.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.mk_any_a_matrix.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
     return lib
 
 
@@ -1184,6 +1379,79 @@ def test_low_entropy_long_rows_match_plain_and_jax(harness, L):
     plain = _low_entropy_through(harness, _low_entropy_edge_rows(5, 8, L),
                                  0.6)
     assert 0 < plain.sum() < len(plain)
+
+
+def test_le_long_work_counts_the_walk():
+    """chip_smoke.le_long_work, the counts behind K2's long-row bound,
+    against a walk of each read position by position as le_row does it:
+    the positions walked up to the first selected 3-mer whose counter
+    reaches its threshold, the selected ones among them, their segment
+    counts, the same over every eligible position, and the verdict; and
+    le_long_ops from those counts."""
+    from chip_smoke import (LE_LONG_CLEAR_OPS, LE_LONG_END_OPS,
+                            LE_LONG_TEST_OPS, LE_OPS_PER_POSITION,
+                            le_long_ops, le_long_work, low_entropy_inputs)
+
+    n, L = 48, 260
+    codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs(seed=9, n=n, L=L)
+    for row in range(0, n, 5):
+        codes[row] = np.tile(codes[row, :1 + row % 3], L)[:L]
+    th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
+    meta = np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1).astype(np.int32)
+    packed = torch.from_numpy(readfilters.pack_codes(codes))
+    seen = readfilters._unpack_codes(packed, L).numpy().astype(int)
+    want = dict.fromkeys(("positions", "selected", "segment_counts",
+                          "eligible", "all_segment_counts"), 0)
+    verdict = []
+    for row in range(n):
+        length, s1, e1, s2, e2, t_all, t1, t2 = (int(x) for x in meta[row])
+        counts = np.zeros((3, 64), int)
+        prev = [(False, 0), (False, 0)]
+        stopped = False
+        for p in range(max(0, length - 3)):
+            kv = seen[row, p] << 4 | seen[row, p + 1] << 2 | seen[row, p + 2]
+            sel = all(not (was and kv == v) for was, v in prev)
+            prev = [(sel, kv), prev[0]]
+            segments = (p + 1 >= s1 and p < e1, p + 1 >= s2 and p < e2)
+            want["eligible"] += 1
+            want["all_segment_counts"] += sel * sum(segments)
+            if stopped:
+                continue
+            want["positions"] += 1
+            if not sel:
+                continue
+            want["selected"] += 1
+            want["segment_counts"] += sum(segments)
+            counts[0, kv] += 1
+            counts[1, kv] += segments[0]
+            counts[2, kv] += segments[1]
+            stopped = (counts[0, kv] >= t_all or counts[1, kv] >= t1
+                       or counts[2, kv] >= t2)
+        verdict.append(stopped)
+    work = le_long_work(packed, *torch.from_numpy(meta).unbind(dim=1))
+    assert {key: work[key] for key in want} == want
+    assert work["verdict"].tolist() == verdict
+    assert 0 < sum(verdict) < n
+    ops = le_long_ops(work, n)
+    assert ops["stop"] == (
+        want["positions"] * LE_OPS_PER_POSITION + want["segment_counts"]
+        + (want["selected"] + want["segment_counts"]) * LE_LONG_TEST_OPS
+        + n * LE_LONG_CLEAR_OPS)
+    assert ops["end"] == (want["eligible"] * LE_OPS_PER_POSITION
+                          + want["all_segment_counts"]
+                          + n * (LE_LONG_CLEAR_OPS + LE_LONG_END_OPS))
+
+
+# the host picks K2's entry point from the row width with its own copy of
+# the header's limit: the two must agree, or a count names a kernel that
+# did not launch (the packed entry point refuses wider rows)
+def test_low_entropy_route_follows_header(harness):
+    from arriba_tpu_torch import kernels
+
+    assert kernels.LE_PACKED_MAX_CODES == harness.le_packed_max_codes()
+    widest = harness.le_packed_max_codes() // 4
+    assert kernels.le_route(widest) == "low_entropy"
+    assert kernels.le_route(widest + 1) == "low_entropy_long"
 
 
 # stripes of 1, 2, 4, 8 and 16 read positions a lane; L not a multiple of 32
@@ -1840,34 +2108,35 @@ def _mk_any_rows(k, seed, n=10, L=60, W=400):
     return reads, windows
 
 
-# k = 1 to 31 (one to four k-steps, digits of 4 to 6 bits, 3 or 4 tiles a
-# group), k = 8 (the plan at K4's own k), k = 40 (two tiles a group), k =
-# 80 (more k-steps than the images hold: rebuilt chunk by chunk) and k =
-# 2,049 (one tile a group, the largest dot tested against k)
-@pytest.mark.parametrize("k,L,W", [(1, 60, 400), (4, 60, 400),
-                                   (12, 60, 400), (16, 60, 400),
-                                   (31, 60, 400), (8, 200, 300),
-                                   (40, 90, 300), (80, 120, 200),
-                                   (2049, 2100, 2120)])
-def test_mxu_any_k_emulation_matches_plain_and_jax(harness, k, L, W):
-    """K4's any-k kernel (mk_any_rows: the accumulator started at the
-    plan's bias, the scaled B images per k-step read back through the
-    descriptor, the scaled A of each tile from the window's bytes, the
-    fold and the mask) against the port's plain version and the JAX
-    package's mxu_shared_kmer_mask at that k, exactly (past k = 80 against
-    the k-mer sets instead: XLA would compile one slice a position); each
-    row's first tile with a hit against mxu_work (k <= 31)."""
-    from chip_smoke import mxu_work
-
-    reads, windows = _mk_any_rows(k, k * 101 + L, L=L, W=W)
-    n = len(reads)
+def _mk_any_emulate(harness, reads, windows, k, grid):
+    """The any-k kernel's emulation (mk_any_rows) over the rows with grid
+    blocks: verdicts (bool [n]) and each row's first tile with a hit; no
+    fault of the ring's schedule or of the accumulator's parts."""
+    (n, L), W = reads.shape, windows.shape[1]
     verdict = np.zeros(n, np.uint8)
     first = np.zeros(n, np.int64)
-    harness.mk_any_rows(_ptr(reads), _ptr(windows), _ptr(verdict),
-                        _ptr(first), n, L, W, k)
+    faults = harness.mk_any_rows(_ptr(reads), _ptr(windows), _ptr(verdict),
+                                 _ptr(first), n, L, W, k, grid)
+    assert faults == 0, k
+    return verdict != 0, first
+
+
+def _mk_any_check(harness, reads, windows, k, want=None):
+    """The emulation with a block a row and with 3 blocks taking rows in
+    turn, against the port's plain version and the JAX op at k (past k =
+    80 against the k-mer sets instead: XLA would compile one slice a
+    position), exactly; each row's first tile against mxu_work (k <= 31).
+    Returns the plain verdicts."""
+    reads, windows = np.ascontiguousarray(reads), np.ascontiguousarray(
+        windows)
+    n = len(reads)
+    verdict, first = _mk_any_emulate(harness, reads, windows, k, n)
     r, w = torch.from_numpy(reads), torch.from_numpy(windows)
     plain = realign.mxu_shared_kmer_mask_plain(r, w, k).numpy()
-    np.testing.assert_array_equal(verdict != 0, plain)
+    np.testing.assert_array_equal(verdict, plain)
+    in_turn = _mk_any_emulate(harness, reads, windows, k, 3)
+    np.testing.assert_array_equal(in_turn[0], plain)
+    np.testing.assert_array_equal(in_turn[1], first)
     if k <= 80:
         xla = np.asarray(jax_realign.mxu_shared_kmer_mask(
             jnp.asarray(reads), jnp.asarray(windows), k=k))
@@ -1879,11 +2148,208 @@ def test_mxu_any_k_emulation_matches_plain_and_jax(harness, k, L, W):
         shared = [bool(kmers(r_) & kmers(w_))
                   for r_, w_ in zip(reads, windows)]
         np.testing.assert_array_equal(plain, shared)
-    assert plain.tolist() == [row in (0, 2, 4) for row in range(n)]
     if k <= 31:
         work = mxu_work(r, w, k)
         np.testing.assert_array_equal(first, work["first_tile"].numpy())
         np.testing.assert_array_equal(plain, work["verdict"].numpy())
+    if want is not None:
+        assert plain.tolist() == want, k
+    return plain
+
+
+def _mk_any_layout(harness, k):
+    fields = np.zeros(11, np.int64)
+    harness.mk_any_layout_fields(k, _ptr(fields))
+    return dict(zip(("chunk", "groups", "parts", "bases", "read_slot",
+                     "window_slot", "words", "read_at", "window_at",
+                     "words_at", "bytes"), (int(x) for x in fields)))
+
+
+# k = 1 to 31 (one to four k-steps, digits of 4 to 6 bits, 3 or 4 tiles a
+# group), k = 8 (the plan at K4's own k), k = 40 (two tiles a group), k =
+# 80 (more k-steps than the images hold: two parts a stage) and k = 2,049
+# (one tile a group, the largest dot tested against k, 14 parts)
+@pytest.mark.parametrize("k,L,W", [(1, 60, 400), (4, 60, 400),
+                                   (12, 60, 400), (16, 60, 400),
+                                   (31, 60, 400), (8, 200, 300),
+                                   (40, 90, 300), (80, 120, 200),
+                                   (2049, 2100, 2120)])
+def test_mxu_any_k_emulation_matches_plain_and_jax(harness, k, L, W):
+    """K4's any-k kernel (mk_any_rows: each stage from the bytes the
+    kernel copies, the window's one-hot word table, every k-step of a
+    group's tiles into one accumulator started at the plan's bias, the
+    scaled B images per k-step read back through the descriptor, the fold
+    and the mask, the block's vote after every group),
+    with a block a row and with 3 blocks taking rows in turn through the
+    copy ring, against the port's plain version and the JAX package's
+    mxu_shared_kmer_mask at that k, exactly; each row's first tile with a
+    hit against mxu_work (k <= 31). Row 4's k-mer is the window's last."""
+    reads, windows = _mk_any_rows(k, k * 101 + L, L=L, W=W)
+    _mk_any_check(harness, reads, windows, k,
+                  [row in (0, 2, 4) for row in range(len(reads))])
+
+
+@pytest.mark.parametrize("k,L", [(12, 60), (31, 60), (80, 120)])
+def test_mxu_any_k_emulation_straddles_chunks(harness, k, L):
+    """A k-mer that straddles a stage's chunk boundary (1,920 window
+    k-mers a stage at k = 12, 1,728 at k = 31; 128 at k = 80, two parts a
+    stage), one at the 2,048th k-mer and one at the window's
+    last (chip_smoke's 'straddle' rows, 8 of L x 2,300): the stage's
+    copied bytes (chunk + k - 1, mk_any_bytes) hold every base of them, as
+    the emulation finds against the plain version and the JAX op. The
+    rows' chunk is the layout's."""
+    reads, windows = mxu_inputs("straddle", N=8, L=L, W=2300, k=k,
+                                chunk=_mk_any_layout(harness, k)["chunk"])
+    _mk_any_check(harness, reads, windows, k,
+                  [row % 2 == 0 for row in range(len(reads))])
+
+
+@pytest.mark.parametrize("k", [12, 31])
+def test_mxu_any_k_emulation_rows_in_turn(harness, k):
+    """chip_smoke's mixed rows at k (no hit, or a read k-mer planted in the
+    window's first 16th, anywhere, or at its last k-mer), 16 rows of 152 x
+    4,000, three stages a row: with 3 blocks a row decided in its first
+    stage leaves its next stages, and the next row's first, in the ring,
+    which the block waits for and skips (mk_any_rows counts a fault of
+    that schedule), and every verdict equals the plain version's."""
+    reads, windows = mxu_inputs("mixed", N=16, W=4000, k=k)
+    plain = _mk_any_check(harness, reads, windows, k)
+    assert 0 < plain.sum() < len(plain)
+
+
+# the k where mk_any_layout changes: one k-step, the images' last k-step
+# with two tiles a group (72) and past it (73: two parts), two tiles a
+# group up to 2,048, one tile from 2,049, and k far past any stage
+_MK_LAYOUT_K = [1, 7, 9, 12, 16, 17, 31, 32, 33, 40, 72, 73, 80, 151, 152,
+                153, 2048, 2049, 4096, 100000, 1 << 30]
+
+
+# the chunk at chip_smoke's k and where the layout changes
+_MK_CHUNK_K = (1, 12, 16, 31, 40, 72, 80)
+_MK_CHUNKS = [2048, 1920, 1920, 1728, 512, 2048, 128]
+
+
+def test_mxu_any_k_layout(harness):
+    """mk_any_layout at each k: a row has one part while the images hold
+    every k-step (k <= 72), and then a chunk is at most the groups in
+    2,048 k-mers; past k = 72 a part of plan.kchunk k-steps is a stage and
+    a chunk one group (128 k-mers, 64 past 2,048). Of those, the chunk
+    holds the most groups that let the most blocks (4 down to 2) share an
+    SM's shared memory: 1,728 k-mers at k = 31 (four blocks an SM), 512 at k = 40. The slots hold
+    the largest span mk_span can give (up to 15 bytes each side, a
+    multiple of 16), the word table chunk - 1 + the bases a stage covers,
+    the regions follow each other at 16-byte boundaries, and a block's
+    shared memory stays within the H100's 227 KB at every k."""
+    plan = np.zeros(16, np.int64)
+    for k in _MK_LAYOUT_K:
+        lay = _mk_any_layout(harness, k)
+        harness.mk_plan_fields(k, _ptr(plan))
+        ksteps, groups, images, kchunk = (int(plan[1]), int(plan[3]),
+                                          int(plan[4]), int(plan[5]))
+        span = 64 * groups
+        assert lay["parts"] == -(-ksteps // kchunk), k
+        assert (lay["parts"] == 1) == (k <= 72), k
+        if lay["parts"] == 1:
+            assert 1 <= lay["groups"] <= 2048 // span, k
+        else:
+            assert lay["groups"] == 1, k
+        assert lay["chunk"] == lay["groups"] * span, k
+        assert any(lay["bytes"] <= 233472 // blocks - 1152
+                   for blocks in (4, 3, 2)), k
+        bases = min(k, 8 * kchunk)
+        assert lay["bases"] == bases, k
+        for slot, kmers in (("read_slot", 160), ("window_slot",
+                                                lay["chunk"])):
+            assert lay[slot] % 16 == 0, k
+            assert lay[slot] >= -(-(15 + kmers - 1 + bases) // 16) * 16, k
+        assert lay["words"] == lay["chunk"] - 1 + bases, k
+        assert lay["read_at"] == images * kchunk * 5120, k
+        assert lay["window_at"] == lay["read_at"] + 4 * lay["read_slot"], k
+        assert lay["words_at"] == lay["window_at"] + 4 * lay["window_slot"]
+        assert lay["bytes"] == lay["words_at"] + 4 * lay["words"], k
+        assert lay["bytes"] <= 232448 - 128, k
+    assert [_mk_any_layout(harness, k)["chunk"]
+            for k in _MK_CHUNK_K] == _MK_CHUNKS
+
+
+@pytest.mark.parametrize("k", [1, 12, 31, 72, 80, 2049, 5000])
+def test_mxu_any_k_stage_bytes(harness, k):
+    """mk_any_bytes for every (slab or chunk, part) of a row: a stage's
+    bytes start at base 8 c0 of its first k-mer and run to the last base
+    of its part of its last k-mer (its k-mers - 1 + the part's bases),
+    clipped to the row and never empty; the parts' bases tile the k-mer's
+    k bases; mk_span's copy of them fits the slot."""
+    lay = _mk_any_layout(harness, k)
+    plan = np.zeros(16, np.int64)
+    harness.mk_plan_fields(k, _ptr(plan))
+    kchunk = int(plan[5])
+    out = np.zeros(2, np.int64)
+    for n, kmers, slot in ((k + 300, 160, "read_slot"),
+                           (k + 5000, lay["chunk"], "window_slot")):
+        for first in range(0, n - k + 1, kmers):
+            covered = []
+            for part in range(lay["parts"]):
+                c0 = part * kchunk
+                harness.mk_any_bytes_of(k, first, kmers, c0, n, _ptr(out))
+                start, count = int(out[0]), int(out[1])
+                bases = min(8 * kchunk, k - 8 * c0)
+                assert start == first + 8 * c0, (k, first, part)
+                assert count == min(kmers - 1 + bases, n - start) >= 1
+                for shift in range(16):
+                    assert -(-(shift + count) // 16) * 16 <= lay[slot], k
+                covered += range(8 * c0, 8 * c0 + bases)
+            assert covered == list(range(k)), k
+
+
+@pytest.mark.parametrize("k,grid,block", [(12, 1, 0), (80, 3, 1),
+                                          (2049, 2, 0)])
+def test_mxu_any_k_cursor(harness, k, grid, block):
+    """MkCursor over slab x chunk x part at any k: block b of grid copies
+    its rows b, b + grid, ... in turn, each as its slabs, each slab's
+    chunks, each chunk's parts, and copies nothing of a row past the stage
+    a hit decides it at (rows 1 and 4 here, at their second stage)."""
+    n, L, W = 7, k + 170, k + 300
+    lay = _mk_any_layout(harness, k)
+    slabs = -(-(L - k + 1) // 160)
+    chunks = -(-(W - k + 1) // lay["chunk"])
+    decided_at = np.full(n, -1, np.int32)
+    decided_at[[1, 4]] = 1
+    out = np.zeros((4096, 4), np.int32)
+    count = harness.mk_any_schedule(n, grid, block, L, W, k,
+                                    _ptr(decided_at), _ptr(out), 4096)
+    want = []
+    for row in range(block, n, grid):
+        stages = [(row, slab, chunk, part) for slab in range(slabs)
+                  for chunk in range(chunks) for part in range(lay["parts"])]
+        if decided_at[row] >= 0:
+            stages = stages[:decided_at[row] + 1]
+        want += stages
+    assert [tuple(x) for x in out[:count].tolist()] == want
+
+
+@pytest.mark.parametrize("k,s,c0,shift", [(12, 0, 0, 0), (12, 1, 0, 5),
+                                          (31, 3, 0, 6), (80, 9, 9, 4),
+                                          (2049, 256, 247, 0)])
+def test_mxu_any_k_word_table_fragments(harness, k, s, c0, shift):
+    """A warp's A fragments of k-step s from a stage's one-hot word table
+    (mk_any_a_words, words indexed by mk_any_word_index): A[i, 4j + c] =
+    2^shift where base 8 s + j < k and the stage's byte t0 + i + 8 (s -
+    c0) + j holds code c <= 3, else 0 (a byte past the stage's n bytes
+    too)."""
+    rng = np.random.default_rng(k + s)
+    n = 100
+    stage = rng.integers(0, 6, n).astype(np.uint8)
+    for t0 in (0, 16, 48):
+        got = np.zeros((16, 32), np.int8)
+        harness.mk_any_a_matrix(_ptr(stage), n, k, t0, s, c0, shift,
+                                _ptr(got))
+        want = np.zeros((16, 32), np.int8)
+        for i in range(16):
+            for j in range(8):
+                at = t0 + i + 8 * (s - c0) + j
+                if 8 * s + j < k and at < n and stage[at] <= 3:
+                    want[i, 4 * j + stage[at]] = np.int8(1 << shift)
+        np.testing.assert_array_equal(got, want)
 
 
 def _accept_low_min_score_rows(seed, N=16, L=128, W=512):

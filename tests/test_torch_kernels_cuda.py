@@ -190,11 +190,35 @@ def test_low_entropy_kernel_routes(cuda, L, short):
     meta = torch.from_numpy(np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1)
                             .astype(np.int32)).to(cuda)
     packed = torch.from_numpy(readfilters.pack_codes(codes)).to(cuda)
+    route = "low_entropy_long" if L > 3072 else "low_entropy"
+    assert kernels.le_route(packed.shape[1]) == route
+    before = dict(kernels.launch_counts)
     got = readfilters._low_entropy_core_packed(packed, L, meta)
+    assert kernels.launch_counts == dict(before, **{route: before[route] + 1})
     want = readfilters._low_entropy_core_plain(
         readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
     assert torch.equal(got, want)
     assert (int(want.sum()) == 0) if short else (0 < int(want.sum()) < 1000)
+    if route == "low_entropy_long":
+        # the packed entry point refuses rows it cannot count, so no launch
+        # counted as "low_entropy" runs the long-row kernel
+        from arriba_tpu_torch.kernels import build
+
+        launch, _ = build.load("low_entropy")
+        out = torch.empty(1000, dtype=torch.uint8, device=cuda)
+        assert launch(packed.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                      *packed.shape,
+                      torch.cuda.current_stream().cuda_stream) != 0
+
+
+# the K2 kernel a packed row width launches: the packed counters up to
+# 3,072 codes (768 bytes), the three-counter kernel past them
+@pytest.mark.parametrize("row_bytes,route", [
+    (1, "low_entropy"), (38, "low_entropy"), (768, "low_entropy"),
+    (769, "low_entropy_long"), (1000, "low_entropy_long")])
+def test_low_entropy_route(row_bytes, route):
+    assert kernels.le_route(row_bytes) == route
+    assert route in kernels.launch_counts
 
 
 # K4 on chip_smoke.py's phase-2 cases, (a)-(c) on the first rows of the
@@ -402,21 +426,25 @@ def test_smith_waterman_wide_kernel_trims_each_row(cuda, N, L, W):
 
 
 # the any-k kernel at chip_smoke's k on the bench rows (first 64) and case
-# (d), on the no-hit rows (the full product), at k = 40 and 80 (more
-# k-steps than its B images hold) and on 4,096 mixed rows (each block
-# takes rows in turn)
+# (d), on the no-hit rows (the full product), on k-mers that straddle its
+# stages' chunk boundaries (chip_smoke's 'straddle' rows; at k = 80 two
+# parts a stage), at k = 40 and 80 (more k-steps than its B images hold)
+# and on 4,096 mixed rows (each block takes rows in turn)
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,N,k", [
     ("bench", 64, 1), ("bench", 64, 4), ("bench", 64, 12), ("bench", 64, 16),
     ("bench", 64, 31), ("odd", 333, 1), ("odd", 333, 4), ("odd", 333, 12),
     ("odd", 333, 16), ("odd", 333, 31), ("no_hit", 16, 12),
+    ("no_hit", 512, 16), ("no_hit", 512, 31), ("straddle", 64, 12),
+    ("straddle", 64, 31), ("straddle", 64, 80),
     ("pad", 64, 16), ("bench", 16, 40), ("bench", 16, 80),
     ("mixed", 4096, 12)])
 def test_mxu_kmer_screen_any_k_matches_plain(cuda, case, N, k):
     from chip_smoke import mxu_inputs
 
+    chunk = kernels.mxu_any_chunk(k) if case == "straddle" else None
     reads, windows = (torch.from_numpy(x[:N].copy()).to(cuda)
-                      for x in mxu_inputs(case, k=k))
+                      for x in mxu_inputs(case, k=k, chunk=chunk))
     before = dict(kernels.launch_counts)
     got = realign.mxu_shared_kmer_mask(reads, windows, k)
     assert kernels.launch_counts == dict(
@@ -425,6 +453,8 @@ def test_mxu_kmer_screen_any_k_matches_plain(cuda, case, N, k):
     assert torch.equal(got, want)
     if case == "no_hit":
         assert not bool(want.any())
+    elif case == "straddle":
+        assert want.tolist() == [row % 2 == 0 for row in range(N)]
     elif case in ("odd", "mixed", "pad") and k >= 8:
         # at k < 8 chance hits decide every odd row
         assert 0 < int(want.sum()) < N
@@ -433,6 +463,15 @@ def test_mxu_kmer_screen_any_k_matches_plain(cuda, case, N, k):
         out.fill_(2)
         kernels.launch_mxu_kmer_screen(reads, windows, out, k)
         assert torch.equal(out, want.to(torch.uint8))
+
+
+# the chunk the built library reports, at chip_smoke's k and where the
+# layout changes: the values the header's layout gives on the CPU
+# (test_torch_kernel_math.test_mxu_any_k_layout)
+@pytest.mark.cuda
+def test_mxu_any_chunk_from_the_library(cuda):
+    assert [kernels.mxu_any_chunk(k) for k in (1, 12, 16, 31, 40, 72, 80)] \
+        == [2048, 1920, 1920, 1728, 512, 2048, 128]
 
 
 # k past 2,048: one tile a group, the largest dot tested against k
