@@ -118,16 +118,18 @@ def accept_wavefront(reads, windows, params):
 
 # K2 takes positions as int32; rows of at most LE_PACKED_MAX_CODES codes
 # (csrc/low_entropy.cuh, whose packed entry point refuses wider rows) take
-# its packed counters, wider ones its three-counter kernel
+# its packed counters, wider ones its long-row kernel
 LE_MAX_CODES = (1 << 31) - 1
 LE_PACKED_MAX_CODES = 3072
+# the long-row kernel's lanes a read (LE_LONG_LANES in csrc/low_entropy.cuh)
+LE_LONG_LANES = 32
 
 
 def le_route(row_bytes: int) -> str:
     """The K2 entry point for packed rows of row_bytes bytes: "low_entropy"
     (arriba_low_entropy, the packed counters) up to LE_PACKED_MAX_CODES
-    codes, "low_entropy_long" (arriba_low_entropy_long, three 32-bit
-    counters a 3-mer) past them. Launches nothing."""
+    codes, "low_entropy_long" (arriba_low_entropy_long, a group of
+    LE_LONG_LANES lanes a read) past them. Launches nothing."""
     return ("low_entropy" if 4 * row_bytes <= LE_PACKED_MAX_CODES
             else "low_entropy_long")
 
@@ -139,7 +141,9 @@ def launch_low_entropy(packed, meta, out) -> None:
     th_a1, th_a2) with length <= 4 * B. The row width picks the kernel
     before launch (le_route): rows of at most 3,072 codes select one 3-mer
     at most 1,023 times and keep its three counters in 10-bit fields of one
-    word; wider rows keep three 32-bit counters, counted as
+    word, a thread a read; wider rows take a group of lanes a read, each
+    lane a chunk of the read in the same packed words, flushed into 32-bit
+    totals before a field could pass 1,023, counted as
     "low_entropy_long"."""
     import torch
 

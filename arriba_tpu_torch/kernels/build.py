@@ -6,15 +6,20 @@ first use, never at import: all stale sources compile in parallel, one nvcc
 each, under an exclusive file lock, into temporary files renamed into
 place. ``python -m arriba_tpu_torch.kernels.build`` builds them all and
 prints what ptxas reports for each kernel (registers, shared memory,
-spills).
+spills); ``--sass NAME`` then prints each kernel of lib<NAME>.so as
+``cuobjdump -sass`` disassembles it: its instructions, and each
+straight-line block of at least 100 (between two branches) with its
+counts of shared-memory atomics, loads and stores.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -156,6 +161,36 @@ def host_function(library: str, symbol: str, argtypes, restype):
     return function
 
 
+def sass_summary(name: str) -> str:
+    """Instruction counts of each kernel in lib<name>.so, from
+    ``cuobjdump -sass`` (see the module note)."""
+    cuobjdump = pathlib.Path(nvcc()).with_name("cuobjdump")
+    listing = subprocess.run([str(cuobjdump), "-sass",
+                              str(library_path(name))], check=True,
+                             capture_output=True, text=True).stdout
+    lines = []
+    for function in re.split(r"\n\s*Function : ", listing)[1:]:
+        title, body = function.split("\n", 1)
+        code = re.findall(r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)"
+                          r"[^;]*;", body)
+        lines.append(f"{title.strip()}: {len(code)} instructions")
+        block: collections.Counter = collections.Counter()
+        start = 0
+        for at, op in enumerate(code):
+            block[op] += 1
+            if op in ("BRA", "EXIT"):
+                if at + 1 - start >= 100:
+                    lines.append(
+                        f"  block {start}-{at}: {at + 1 - start} "
+                        f"instructions, ATOMS {block['ATOMS']}, LDS "
+                        f"{block['LDS']}, STS {block['STS']}")
+                block, start = collections.Counter(), at + 1
+    return "\n".join(lines)
+
+
 if __name__ == "__main__":
     for kernel, (seconds, log) in build().items():
         print(f"built {kernel} in {seconds:.1f} s\n{log}", file=sys.stderr)
+    if sys.argv[1:2] == ["--sass"]:
+        for kernel in sys.argv[2:]:
+            print(sass_summary(kernel))

@@ -46,7 +46,9 @@ printed):
    shape, in 16-bit pairs; 16,384 x 1,024 x 2,048 in 16-bit pairs and with
    bytes 5-255 in 32-bit lanes; bytes 5-255; the scores (2, -3, -5) past
    2^13; match - gap outside a signed byte); K2's long-row kernel on
-   8,192 reads of 4,000 codes (LE_LONG_SHAPE); K4's any-k kernel at k =
+   8,192 reads of 4,000 codes (LE_LONG_SHAPE) and on 2,048 reads long
+   enough that its lanes flush their packed counters, a homopolymer every
+   64th row (le_long_cases); K4's any-k kernel at k =
    1, 4, 12, 16 and 31 (MXU_ANY_K) on the bench rows, case (d) and rows
    with no hit, on 4,096 mixed rows at k = 12 and 31, and an empty launch
    of each k's grid, then its stress step (MXU_ANY_STRESS: 50 launches on
@@ -1353,16 +1355,34 @@ def check_accept_variants() -> list:
     return records
 
 
-# K2's long-row kernel's phase-2 batch: reads of 4,000 codes, past the
-# packed counters' 3,072
+# K2's long-row kernel's phase-2 batches: 8,192 reads of 4,000 codes, past
+# the packed counters' 3,072 ("long"), and 2,048 reads of LE_LONG_LANES x
+# 3,069 + 100 codes (98,308 at 32 lanes), which take more tiles than a
+# lane's 10-bit fields hold, so that each group flushes them, with a
+# homopolymer every 64th row ("flush"; its plain version's tensors fit on
+# the card)
 LE_LONG_SHAPE = (8192, 4000)
+LE_FLUSH_ROWS = 2048
+# launches of each case checked one by one before the timed ones
+LE_LONG_REPEATS = 20
 
 
-def le_long_inputs(n: int, L: int, seed: int = 11):
+def le_long_cases() -> dict:
+    """{case: (rows, codes, homopolymers)} of K2's long-row kernel."""
+    from arriba_tpu_torch import kernels
+
+    return {"long": (*LE_LONG_SHAPE, False),
+            "flush": (LE_FLUSH_ROWS, kernels.LE_LONG_LANES * 3069 + 100,
+                      True)}
+
+
+def le_long_inputs(n: int, L: int, seed: int = 11,
+                   homopolymers: bool = False):
     """(packed uint8 [n, L / 4], meta int32 [n, 8]) on the card for K2's
     long-row kernel: low_entropy_inputs at that shape (codes 0-3, a few N,
-    a tenth of the reads shorter, a fiftieth low-entropy motifs) with the
-    thresholds of kmer_content 0.6, and the codes."""
+    a tenth of the reads shorter, a fiftieth low-entropy motifs), with
+    homopolymers a homopolymer of the full length every 64th row, and the
+    thresholds of kmer_content 0.6; and the codes."""
     import numpy as np
     import torch
 
@@ -1370,6 +1390,10 @@ def le_long_inputs(n: int, L: int, seed: int = 11):
 
     codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs(seed=seed, n=n,
                                                             L=L)
+    if homopolymers:
+        rows = np.arange(0, n, 64)
+        codes[rows] = (rows % 4)[:, None]
+        lengths[rows] = L
     th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
     meta = np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1).astype(np.int32)
     return (torch.from_numpy(readfilters.pack_codes(codes)).to("cuda"),
@@ -1378,63 +1402,83 @@ def le_long_inputs(n: int, L: int, seed: int = 11):
 
 def check_low_entropy_long() -> dict:
     """K2's long-row kernel (rows past LE_PACKED_MAX_CODES codes, routed
-    before launch by kernels.le_route) at LE_LONG_SHAPE through
+    before launch by kernels.le_route) on each of le_long_cases through
     readfilters._low_entropy_core_packed against the plain version on the
-    card, exactly; its time (median of 20 windows of K2_K3_BATCH launches),
-    the plain version's (one call) and its bound: the packed rows, meta and
-    verdicts once each against the fewer of the function's operations on
-    these rows (le_long_ops: walking each read to its first threshold, or
-    whole). Returns its record."""
+    card, exactly, on LE_LONG_REPEATS launches each checked; its time
+    (median of 20 windows of K2_K3_BATCH launches),
+    the plain version's (the one call that gives the verdicts it is held
+    against) and its bound: the packed rows, meta and verdicts once each
+    against the fewer of the function's operations on these rows
+    (le_long_ops: walking each read to its first threshold, or whole).
+    Returns its record: the "long" case's numbers, and each case's under
+    "cases"."""
     import torch
 
     from arriba_tpu_torch import kernels
     from arriba_tpu_torch.ops import readfilters
 
-    n, L = LE_LONG_SHAPE
-    packed, meta, codes = le_long_inputs(n, L)
-    if kernels.le_route(packed.shape[1]) != "low_entropy_long":
-        raise SystemExit(f"rows of {L} codes do not route to K2's long-row "
-                         f"kernel")
-    got = readfilters._low_entropy_core_packed(packed, L, meta)
-    want = readfilters._low_entropy_core_plain(
-        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
-    work = le_long_work(packed, *meta.unbind(dim=1))
-    err = int((got.int() - want.int()).abs().max())
-    n_flag = int(want.sum())
-    if err != 0 or not torch.equal(work["verdict"], want) or not (
-            0 < n_flag < n):
-        raise SystemExit("K2's long-row kernel disagrees with its plain "
-                         "version, le_long_work disagrees with both, or the "
-                         "input does not exercise both verdicts")
-    out = torch.empty(n, dtype=torch.uint8, device="cuda")
-    ms = cuda_ms(lambda: kernels.launch_low_entropy(packed, meta, out), 20,
-                 batch=K2_K3_BATCH)
-    plain_ms = cuda_ms(lambda: readfilters._low_entropy_core_plain(
-        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1)), 1,
-        warm_up=False)
-    ops = le_long_ops(work, n)
-    n_ops = min(ops.values())
-    n_bytes = packed.numel() + meta.numel() * 4 + n
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K2 low_entropy_long: {n_flag}/{n} reads of {L} codes flagged, "
-        f"equal to the plain version; {ms:.4f} ms a launch, plain "
-        f"{plain_ms:.4f} ms; {work['positions']} positions walked "
-        f"({work['selected']} selected, {work['segment_counts']} segment "
-        f"counts; {work['eligible']} eligible), {ops['stop']} integer "
-        f"operations to the first thresholds, {ops['end']} to the ends: "
-        f"bound {bound_ms:.4f} ms "
-        f"({bound_by}, {bound_ms / ms:.1%})")
+    cases = {}
+    for name, (n, L, homopolymers) in le_long_cases().items():
+        packed, meta, codes = le_long_inputs(n, L,
+                                             homopolymers=homopolymers)
+        if kernels.le_route(packed.shape[1]) != "low_entropy_long":
+            raise SystemExit(f"rows of {L} codes do not route to K2's "
+                             f"long-row kernel")
+        got = readfilters._low_entropy_core_packed(packed, L, meta)
+        held = {}
+
+        def plain():
+            held["want"] = readfilters._low_entropy_core_plain(
+                readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
+
+        plain_ms = cuda_ms(plain, 1, warm_up=False)
+        want = held.pop("want")
+        work = le_long_work(packed, *meta.unbind(dim=1),
+                            rows=max(1, 2 ** 20 // L))
+        err = int((got.int() - want.int()).abs().max())
+        n_flag = int(want.sum())
+        if err != 0 or not torch.equal(work["verdict"], want) or not (
+                0 < n_flag < n):
+            raise SystemExit(f"K2's long-row kernel disagrees with its plain "
+                             f"version, le_long_work disagrees with both, or "
+                             f"the input does not exercise both verdicts "
+                             f"({name})")
+        if homopolymers and not bool(want[::64].all()):
+            raise SystemExit("a homopolymer row is not flagged")
+        out = torch.empty(n, dtype=torch.uint8, device="cuda")
+        for _ in range(LE_LONG_REPEATS):  # every repeat writes every row
+            out.fill_(2)
+            kernels.launch_low_entropy(packed, meta, out)
+            if not torch.equal(out, want.to(torch.uint8)):
+                raise SystemExit(f"K2's long-row kernel changed its verdicts "
+                                 f"over repeated launches ({name})")
+        ms = cuda_ms(lambda: kernels.launch_low_entropy(packed, meta, out),
+                     20, batch=K2_K3_BATCH)
+        ops = le_long_ops(work, n)
+        n_bytes = packed.numel() + meta.numel() * 4 + n
+        bound_ms, bound_by = bound(n_bytes, min(ops.values()))
+        log(f"K2 low_entropy_long {name}: {n_flag}/{n} reads of {L} codes "
+            f"flagged, equal to the plain version; {ms:.4f} ms a launch, "
+            f"plain {plain_ms:.4f} ms; {work['positions']} positions walked "
+            f"({work['selected']} selected, {work['segment_counts']} segment "
+            f"counts; {work['eligible']} eligible), {ops['stop']} integer "
+            f"operations to the first thresholds, {ops['end']} to the ends: "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%})")
+        cases[name] = {"rows": n, "codes": L, "flagged": n_flag,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "positions": work["positions"],
+                       "selected": work["selected"],
+                       "segment_counts": work["segment_counts"],
+                       "eligible": work["eligible"], "operations": ops}
+    main = cases["long"]
     return {"name": "low_entropy_long", "route": "cuda",
             "source": "arriba_tpu_torch/kernels/csrc/low_entropy.cu",
             "replaces": "arriba_tpu/ops/readfilters.py:206",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "cases": {"long": {"rows": n, "codes": L, "flagged": n_flag,
-                               "positions": work["positions"],
-                               "selected": work["selected"],
-                               "segment_counts": work["segment_counts"],
-                               "eligible": work["eligible"],
-                               "operations": ops}}}
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "cases": cases}
 
 
 def check_kernels() -> list:
@@ -2197,8 +2241,9 @@ def against_cases(kernel: str) -> dict:
     a check that the output equals the plain version's, and None or this
     checkout's own (entry point, arguments) where they differ)}. K1: the
     main, low-complexity and mixed batches; K2: its phase-2 batch and its
-    long-row kernel's (LE_LONG_SHAPE, through arriba_low_entropy_long
-    where a build has it); K3: its phase-2 batch; K4: its
+    long-row kernel's (le_long_cases, through arriba_low_entropy_long
+    where a build has it, and the long case's grid with every read of
+    length 0); K3: its phase-2 batch; K4: its
     phase-2 cases (MXU_CASES); its any-k kernel: MXU_ANY_CASES at each k of
     MXU_ANY_K and the mixed rows at MXU_ANY_MIXED; K3w: SWW_CASES, the other
     build through its 32-bit entry point, this checkout through the width
@@ -2234,18 +2279,27 @@ def against_cases(kernel: str) -> dict:
         cases["main"] = ((packed, meta, out, *packed.shape), None,
                          lambda: torch.equal(out.view(torch.bool), want),
                          None)
-        # the long-row kernel, through its own entry point where a build
-        # has one (an older build's arriba_low_entropy routes inside)
+        # the long-row kernel's cases, through its own entry point where a
+        # build has one (an older build's arriba_low_entropy routes inside)
+        for name, (n, L, homopolymers) in le_long_cases().items():
+            packed, meta, _ = le_long_inputs(n, L, homopolymers=homopolymers)
+            out_long = torch.empty(n, dtype=torch.uint8, device=cuda)
+            want_long = readfilters._low_entropy_core_plain(
+                readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
+            args = (packed, meta, out_long, *packed.shape)
+            cases[name] = (args, None,
+                           lambda out=out_long, want=want_long: torch.equal(
+                               out.view(torch.bool), want),
+                           ("low_entropy_long", args))
+        # the long case's grid with every read of length 0: what a read
+        # costs before its positions (clearing, folding, the vote)
         packed, meta, _ = le_long_inputs(*LE_LONG_SHAPE)
-        out_long = torch.empty(len(packed), dtype=torch.uint8, device=cuda)
-        want_long = readfilters._low_entropy_core_plain(
-            readfilters._unpack_codes(packed, LE_LONG_SHAPE[1]),
-            *meta.unbind(dim=1))
-        args = (packed, meta, out_long, *packed.shape)
-        cases["long"] = (args, None,
-                         lambda: torch.equal(out_long.view(torch.bool),
-                                             want_long),
-                         ("low_entropy_long", args))
+        meta[:, 0] = 0
+        out_empty = torch.empty(len(packed), dtype=torch.uint8, device=cuda)
+        args = (packed, meta, out_empty, *packed.shape)
+        cases["long_empty"] = (args, None,
+                               lambda: not bool(out_empty.any()),
+                               ("low_entropy_long", args))
     elif kernel == "smith_waterman":
         r, w = (torch.from_numpy(x).to(cuda) for x in smith_waterman_inputs())
         out = torch.empty(len(r), dtype=torch.int32, device=cuda)

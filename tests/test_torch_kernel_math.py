@@ -44,6 +44,7 @@ from chip_smoke import (ACCEPT_KINDS, accept_adversarial_inputs,  # noqa: E402
 HARNESS = r"""
 #include <stdint.h>
 #include <algorithm>
+#include <cstring>
 #include <vector>
 #include "accept_wavefront.cuh"
 #include "low_entropy.cuh"
@@ -791,24 +792,114 @@ void le_rows(const uint8_t* packed, const int32_t* meta, uint8_t* out,
 // the widest rows, in codes, K2's packed entry point takes
 int le_packed_max_codes() { return arriba::LE_PACKED_MAX_CODES; }
 
+// K2's long-row kernel on one read, its group of LE_LONG_LANES lanes as a
+// loop: each tile staged as the kernel stages it (the row's bytes of the
+// tile's span at the row's own 16-byte alignment, the rest of the stage
+// garbage), each lane's words read from the stage, pass 1, the shuffle
+// scan as the same log2(lanes) steps over the lanes' tables (lane l takes
+// lane l - d's table before its own), pass 2 into each lane's 64 packed
+// words, the flushes and the fold, each lane summing its 3-mers' words in
+// the kernel's order, and the test of the totals.
+bool le_long_row(const uint8_t* r, const int32_t* m, int row_bytes) {
+    constexpr int L = arriba::LE_LONG_LANES, W = arriba::LE_LONG_WORDS;
+    const int n_pos = std::max(std::min(m[0], 4 * row_bytes) - arriba::LE_K,
+                               0);
+    const arriba::LeSegment a1 = arriba::le_segment(m[1], m[2], n_pos);
+    const arriba::LeSegment a2 = arriba::le_segment(m[3], m[4], n_pos);
+    const arriba::LeLongPlan plan = arriba::le_long_plan(n_pos, L, W);
+    std::vector<uint32_t> words(L * 64, 0u);  // lane l's 3-mer v at l * 64 + v
+    std::vector<arriba::LeTotals> totals(64, arriba::LeTotals{0u, 0u, 0u});
+    uint32_t stage[arriba::LE_LONG_STAGE_BYTES / 4];
+    uint32_t table[L], incl[L], before[L];
+    uint64_t rec[L][W];
+    const auto fold = [&](int tiles) {
+        const int run = arriba::le_fold_run(tiles, plan.words);
+        for (int lane = 0; lane < L; ++lane) {
+            for (int k = 0; k < 64 / L; ++k) {
+                const int v = lane + k * L;
+                arriba::le_fold(
+                    [&](int m) {
+                        const uint32_t* w = &words[4 * m * 64 + v];
+                        return arriba::LeQuad{w[0], w[64], w[128], w[192]};
+                    },
+                    L / 4, lane, run, &totals[v]);
+            }
+        }
+        std::fill(words.begin(), words.end(), 0u);
+    };
+    int state = 0, since = 0;
+    for (int t = 0; t < plan.tiles; ++t) {
+        if (arriba::le_flush_before(since, plan.words)) {
+            fold(since);
+            since = 0;
+        }
+        const arriba::LeSpan span = arriba::le_tile_span(t, plan, L,
+                                                         row_bytes);
+        const uint8_t* lo = r + span.lo;
+        const int head = (int)(reinterpret_cast<uintptr_t>(lo) & 15);
+        std::memset(stage, 0xa5, sizeof stage);
+        std::memcpy(reinterpret_cast<uint8_t*>(stage) + head, lo,
+                    span.hi - span.lo);
+        const int word0 = head + (int)(span.first - span.lo);
+        const auto words_of = [&](int lane) {
+            const int q0 = word0 + 4 * (lane * plan.words - 1);
+            return arriba::le_chunk(
+                [&, q0](int i) -> uint32_t {
+                    return stage[std::max((q0 >> 2) + i, 0)];
+                },
+                (word0 & 3) * 8, t == 0 && lane == 0);
+        };
+        for (int lane = 0; lane < L; ++lane) {
+            table[lane] = arriba::le_chunk_pass1<W>(words_of(lane),
+                                                    plan.words, rec[lane]);
+            incl[lane] = table[lane];
+        }
+        for (int d = 1; d < L; d <<= 1) {
+            std::copy(incl, incl + L, before);
+            for (int lane = d; lane < L; ++lane) {
+                incl[lane] = arriba::le_compose(before[lane - d], incl[lane]);
+            }
+        }
+        for (int lane = 0; lane < L; ++lane) {
+            const uint32_t excl = lane ? incl[lane - 1] : arriba::LE_IDENTITY;
+            const int start = arriba::le_apply(excl, state);
+            const long long p0 = 16LL * plan.words * ((long long)t * L + lane);
+            if (p0 < n_pos) {
+                arriba::le_chunk_pass2<W>(
+                    words_of(lane), plan.words, rec[lane], start, (int)p0,
+                    n_pos, a1, a2, [&](int v, uint32_t weight) {
+                        words[lane * 64 + v] += weight;
+                    });
+            }
+        }
+        state = arriba::le_apply(incl[L - 1], state);
+        ++since;
+    }
+    fold(since);
+    bool flagged = false;
+    for (int v = 0; v < 64; ++v) {
+        flagged |= arriba::le_crossed_totals(totals[v], m[5], m[6], m[7]);
+    }
+    return flagged;
+}
+
 // K2's work per row as the kernel does it, the route following the row
 // width as the kernel's dispatch does: rows of at most 3,072 codes through
 // le_scan_packed into 64 packed words and the test of each word, wider
-// ones through le_row with three 32-bit counters a 3-mer
+// ones through the long-row kernel's procedure (le_long_row)
 void le_rows_kernel(const uint8_t* packed, const int32_t* meta,
                     uint8_t* out, int n, int row_bytes) {
     const bool packed_route =
         4LL * row_bytes <= arriba::LE_PACKED_MAX_CODES;
-    uint32_t words[64], counts[3 * arriba::LE_KMERS];
+    uint32_t words[64];
     for (int row = 0; row < n; ++row) {
         const int32_t* m = meta + (long)row * 8;
         const uint8_t* r = packed + (long)row * row_bytes;
-        const int length = std::min(m[0], 4 * row_bytes);
         if (!packed_route) {
-            out[row] = arriba::le_row(r, length, m[1], m[2], m[3], m[4],
-                                      m[5], m[6], m[7], counts, 1);
+            out[row] = le_long_row(r, m, row_bytes);
             continue;
         }
+        const int length = std::min(m[0], 4 * row_bytes);
         const int n_pos = std::max(length - arriba::LE_K, 0);
         std::fill(words, words + 64, 0u);
         arriba::le_scan_packed(r, row_bytes, n_pos,
@@ -820,6 +911,99 @@ void le_rows_kernel(const uint8_t* packed, const int32_t* meta,
             flagged |= arriba::le_crossed_packed(words[v], m[5], m[6], m[7]);
         }
         out[row] = flagged;
+    }
+}
+
+// the long-row procedure's constants and plan: lanes, words, the field's
+// most selections; plan of n_pos (words, tiles)
+void le_long_constants(int32_t* out) {
+    out[0] = arriba::LE_LONG_LANES;
+    out[1] = arriba::LE_LONG_WORDS;
+    out[2] = arriba::LE_FIELD_MAX;
+}
+
+void le_long_plan_of(int n_pos, int32_t* out) {
+    const arriba::LeLongPlan plan = arriba::le_long_plan(
+        n_pos, arriba::LE_LONG_LANES, arriba::LE_LONG_WORDS);
+    out[0] = plan.words;
+    out[1] = plan.tiles;
+}
+
+uint32_t le_table_of(int eligible, int same1, int same2) {
+    return arriba::le_table(eligible, same1, same2);
+}
+
+uint32_t le_compose_of(uint32_t f, uint32_t g) {
+    return arriba::le_compose(f, g);
+}
+
+// tables of 8 bits (every map of the four states) for which (f g) h and
+// f (g h) differ, and those for which the identity is not neutral
+int le_compose_errors() {
+    int errors = 0;
+    for (uint32_t f = 0; f < 256; ++f) {
+        errors += arriba::le_compose(f, arriba::LE_IDENTITY) != f;
+        errors += arriba::le_compose(arriba::LE_IDENTITY, f) != f;
+        for (uint32_t g = 0; g < 256; ++g) {
+            const uint32_t fg = arriba::le_compose(f, g);
+            for (uint32_t h = 0; h < 256; ++h) {
+                errors += arriba::le_compose(fg, h)
+                          != arriba::le_compose(f, arriba::le_compose(g, h));
+            }
+        }
+    }
+    return errors;
+}
+
+// The selection of a packed row's first n_pos positions three ways, from
+// the state before position first (its sel[p-1] and sel[p-2]): le_select
+// walked in order (sel_walk; the carry's 3-mers are those at first - 1 and
+// first - 2); le_table composed over the positions, applied to that state,
+// low bit (sel_table); and the long-row kernel's pass 1 over the words
+// from first (a multiple of 16), its record read at that state (sel_pass1).
+// tables[k]: pass 1's table of words first / 16 to first / 16 + k against
+// le_table's composition over the same positions.
+void le_selection_ways(const uint8_t* row, int row_bytes, int first,
+                       int n_pos, int start, uint8_t* sel_walk,
+                       uint8_t* sel_table, uint8_t* sel_pass1,
+                       uint32_t* tables) {
+    const auto kmer = [&](int p) {
+        return arriba::le_kmer(row, row_bytes, p);
+    };
+    arriba::LowEntropyCarry c;
+    c.sel1 = start & 1;
+    c.sel2 = start >> 1;
+    c.kv1 = first >= 1 ? kmer(first - 1) : -1;
+    c.kv2 = first >= 2 ? kmer(first - 2) : -1;
+    uint32_t table = arriba::LE_IDENTITY;
+    for (int p = first; p < n_pos; ++p) {
+        const int v = kmer(p);
+        sel_walk[p - first] = arriba::le_select(&c, v);
+        const bool same1 = p >= 1 && v == kmer(p - 1);
+        const bool same2 = p >= 2 && v == kmer(p - 2);
+        table = arriba::le_compose(table, arriba::le_table(true, same1,
+                                                           same2));
+        sel_table[p - first] = arriba::le_apply(table, start) & 1;
+        if ((p - first) % 16 == 15) tables[(p - first) / 16 * 2] = table;
+    }
+    const auto word = [&](int j) {
+        uint32_t x = 0;
+        for (int b = 0; b < 4; ++b) {
+            const int at = 4 * j + b;
+            if (at >= 0 && at < row_bytes) x |= (uint32_t)row[at] << (8 * b);
+        }
+        return x;
+    };
+    arriba::LeWalk4 walk = arriba::le_walk4_start();
+    for (int w = 0; 16 * w < n_pos - first; ++w) {
+        const int j = first / 16 + w;
+        const uint32_t prev = j >= 1 ? word(j - 1) : 0u;
+        const uint64_t rec = arriba::le_walk4_word(
+            &walk, arriba::le_same_word(prev, word(j), word(j + 1)));
+        for (int i = 0; i < 16 && 16 * w + i < n_pos - first; ++i) {
+            sel_pass1[16 * w + i] = (rec >> (4 * i + start)) & 1u;
+        }
+        tables[2 * w + 1] = arriba::le_walk4_table(walk);
     }
 }
 
@@ -1099,6 +1283,14 @@ def harness(tmp_path_factory):
     lib.aw_rows_diagonals.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_rows_kernel.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.le_long_constants.argtypes = [ctypes.c_void_p]
+    lib.le_long_plan_of.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.le_table_of.argtypes = [ctypes.c_int] * 3
+    lib.le_table_of.restype = ctypes.c_uint32
+    lib.le_compose_of.argtypes = [ctypes.c_uint32] * 2
+    lib.le_compose_of.restype = ctypes.c_uint32
+    lib.le_selection_ways.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 4
     lib.le_packed_max_codes.restype = ctypes.c_int
     lib.sw_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     lib.sw_primitive.argtypes = [ctypes.c_int] + [ctypes.c_uint32] * 3
@@ -1340,23 +1532,29 @@ def _low_entropy_edge_rows(seed, n, L):
     return codes, lengths, a1s, a1e, a2s, a2e
 
 
+def _le_rows_kernel(harness, rows, th):
+    """le_rows_kernel's flags on rows with thresholds th."""
+    codes, lengths, a1s, a1e, a2s, a2e = rows
+    meta = np.ascontiguousarray(np.stack(
+        [lengths, a1s, a1e, a2s, a2e, *th], axis=1).astype(np.int32))
+    packed = np.ascontiguousarray(readfilters.pack_codes(codes))
+    native = np.zeros(len(codes), np.uint8)
+    harness.le_rows_kernel(_ptr(packed), _ptr(meta), _ptr(native),
+                           len(codes), packed.shape[1])
+    return native != 0
+
+
 def _low_entropy_through(harness, rows, kmer_content):
     """K2's per-row procedure (le_rows_kernel), the plain version and the
     JAX package on the same rows; all must agree. Returns the flags."""
     codes, lengths, a1s, a1e, a2s, a2e = rows
     th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, kmer_content)
-    meta = np.ascontiguousarray(np.stack(
-        [lengths, a1s, a1e, a2s, a2e, *th], axis=1).astype(np.int32))
-    packed = np.ascontiguousarray(readfilters.pack_codes(codes))
     plain = readfilters.low_entropy_batch(
         *(torch.from_numpy(x) for x in rows), kmer_content).numpy()
     xla = np.asarray(jax_readfilters.low_entropy_batch(
         *(jnp.asarray(x) for x in rows), kmer_content))
     np.testing.assert_array_equal(plain, xla)
-    native = np.zeros(len(codes), np.uint8)
-    harness.le_rows_kernel(_ptr(packed), _ptr(meta), _ptr(native),
-                           len(codes), packed.shape[1])
-    np.testing.assert_array_equal(native != 0, plain)
+    np.testing.assert_array_equal(_le_rows_kernel(harness, rows, th), plain)
     return plain
 
 
@@ -1373,8 +1571,9 @@ def test_low_entropy_packed_kernel_matches_plain_and_jax(harness, L,
 
 
 # 3,072 codes: the packed counters' widest rows (a homopolymer selects its
-# 3-mer 1,023 times); 3,100: the route with three counters a 3-mer
-@pytest.mark.parametrize("L", [3072, 3100])
+# 3-mer 1,023 times); 3,100 and 4,000: the long-row kernel's procedure
+# (le_long_row), one tile of chunks of 112 and 128 positions
+@pytest.mark.parametrize("L", [3072, 3100, 4000])
 def test_low_entropy_long_rows_match_plain_and_jax(harness, L):
     plain = _low_entropy_through(harness, _low_entropy_edge_rows(5, 8, L),
                                  0.6)
@@ -1449,9 +1648,232 @@ def test_low_entropy_route_follows_header(harness):
     from arriba_tpu_torch import kernels
 
     assert kernels.LE_PACKED_MAX_CODES == harness.le_packed_max_codes()
+    assert kernels.LE_LONG_LANES == _le_long_constants(harness)[0]
     widest = harness.le_packed_max_codes() // 4
     assert kernels.le_route(widest) == "low_entropy"
     assert kernels.le_route(widest + 1) == "low_entropy_long"
+
+
+def _le_long_constants(harness):
+    """(lanes, words, field max) of the header's long-row procedure."""
+    out = np.zeros(3, np.int32)
+    harness.le_long_constants(_ptr(out))
+    return tuple(int(x) for x in out)
+
+
+def _le_long_plan(harness, n_pos):
+    out = np.zeros(2, np.int32)
+    harness.le_long_plan_of(n_pos, _ptr(out))
+    return int(out[0]), int(out[1])
+
+
+def _le_selected(codes, lengths):
+    """bool [n, P]: the greedy selection of each row's eligible positions,
+    walked position by position (numpy over the rows), and the 3-mers
+    [n, P]."""
+    c = np.minimum(codes, 3).astype(np.int64)
+    kv = c[:, :-2] << 4 | c[:, 1:-1] << 2 | c[:, 2:]
+    n = len(codes)
+    P = max(0, int(lengths.max()) - 3)
+    sel = np.zeros((n, P), bool)
+    sel1 = np.zeros(n, bool)
+    sel2 = np.zeros(n, bool)
+    for p in range(P):
+        now = p < lengths - 3
+        if p >= 1:
+            now &= ~(sel1 & (kv[:, p] == kv[:, p - 1]))
+        if p >= 2:
+            now &= ~(sel2 & (kv[:, p] == kv[:, p - 2]))
+        sel[:, p] = now
+        sel2, sel1 = sel1, now
+    return sel, kv[:, :P]
+
+
+def _le_tight_thresholds(rows):
+    """(thresholds, verdicts) at the edge of each row's verdict: its most
+    counted 3-mer in plane row % 3 (the whole read, segment 1, segment 2)
+    reaches the threshold on even rows and falls one short on odd ones; the
+    other planes never cross. So a count one off flips a verdict."""
+    codes, lengths, a1s, a1e, a2s, a2e = rows
+    sel, kv = _le_selected(codes, lengths)
+    p = np.arange(sel.shape[1])[None, :]
+    planes = (sel, sel & (p + 1 >= a1s[:, None]) & (p < a1e[:, None]),
+              sel & (p + 1 >= a2s[:, None]) & (p < a2e[:, None]))
+    n = len(codes)
+    th = np.full((3, n), 1 << 30, np.int64)
+    verdicts = np.zeros(n, bool)
+    for row in range(n):
+        plane = planes[row % 3][row]
+        most = np.bincount(kv[row][plane], minlength=64).max()
+        th[row % 3, row] = max(1, most + row % 2)
+        verdicts[row] = most >= 1 and row % 2 == 0
+    return tuple(x.astype(np.int32) for x in th), verdicts
+
+
+def _low_entropy_through_thresholds(harness, rows, th):
+    """_low_entropy_through with the thresholds given: le_rows_kernel, the
+    plain version and the JAX op; all must agree. Returns the flags."""
+    plain = readfilters._low_entropy_core_plain(
+        *(torch.from_numpy(x) for x in (*rows, *th))).numpy()
+    xla = np.asarray(jax_readfilters._low_entropy_core(
+        *(jnp.asarray(x) for x in (*rows, *th))))
+    np.testing.assert_array_equal(plain, xla)
+    np.testing.assert_array_equal(_le_rows_kernel(harness, rows, th), plain)
+    return plain
+
+
+def _le_long_rows(seed, n, L, boundaries=()):
+    """Rows for the long-row procedure: random codes with a few N, and
+    homopolymer and dinucleotide rows (whose start states never merge) of
+    the full width, with segments that begin or end at the positions in
+    boundaries (a chunk's first position)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    codes[rng.random((n, L)) < 0.002] = 4
+    lengths = np.full(n, L, np.int32)
+    lengths[n // 2:] -= rng.integers(0, 40, n - n // 2).astype(np.int32)
+    for row in range(0, n, 3):          # homopolymers
+        codes[row] = row % 4
+    for row in range(1, n, 3):          # dinucleotides
+        codes[row] = np.tile([row % 4, (row + 1 + row // 3) % 4], L)[:L]
+    a1s = rng.integers(0, L // 2, n).astype(np.int32)
+    a1e = (a1s + rng.integers(1, L // 2, n)).astype(np.int32)
+    a2s = rng.integers(0, L, n).astype(np.int32)
+    a2e = (a2s + rng.integers(0, L, n)).astype(np.int32)
+    # a segment counts p iff start - 1 <= p < end: from a chunk's first
+    # position, or up to the one before it
+    for k, b in enumerate(boundaries):
+        row = k % n
+        if k % 2:
+            a2e[row] = b
+        else:
+            a1s[row] = b + 1
+            a1e[row] = max(a1e[row], b + 200)
+    return codes, lengths, a1s, a1e, a2s, a2e
+
+
+# rows a lane's chunk is 112 (3,100) and 128 (4,000) positions of, whose
+# segments begin and end at chunk boundaries, with thresholds at the edge
+# of each verdict
+@pytest.mark.parametrize("L", [3100, 4000])
+def test_low_entropy_long_rows_tight_thresholds(harness, L):
+    words, tiles = _le_long_plan(harness, L - 3)
+    assert tiles == 1
+    chunk = 16 * words
+    rows = _le_long_rows(7, 24, L, [chunk * k for k in range(1, 12)])
+    th, verdicts = _le_tight_thresholds(rows)
+    plain = _low_entropy_through_thresholds(harness, rows, th)
+    np.testing.assert_array_equal(plain, verdicts)
+    assert verdicts.sum() >= 10
+
+
+# a lane's chunk past 3,069 positions in the issue's terms: rows of lanes x
+# 3,069 + 100 codes take more tiles than a lane's 10-bit fields hold, so the
+# group flushes its words into the 32-bit totals at least once
+def test_low_entropy_long_rows_flush(harness):
+    lanes, words_max, field_max = _le_long_constants(harness)
+    L = lanes * 3069 + 100
+    words, tiles = _le_long_plan(harness, L - 3)
+    assert words == words_max
+    per_tile = (16 * words + 2) // 3
+    assert tiles * per_tile > field_max        # a flush is needed
+    rows = _le_long_rows(11, 9, L)
+    th, verdicts = _le_tight_thresholds(rows)
+    # the same rows again at kmer_content 0.6, in the same batch
+    th = tuple(np.concatenate([x, y]) for x, y in zip(
+        th, readfilters._thresholds(*rows[1:], 0.6)))
+    plain = _low_entropy_through_thresholds(
+        harness, tuple(np.concatenate([x, x]) for x in rows), th)
+    np.testing.assert_array_equal(plain[:9], verdicts)
+    assert verdicts.sum() >= 4
+    assert plain[9::3].all()                    # the homopolymers
+
+
+# rows whose n_pos leaves lanes without a position (n_pos below 16 x the
+# lanes), lengths 0-3, and n_pos at and around a word and a chunk
+def test_low_entropy_long_rows_short_reads(harness):
+    lanes, _, _ = _le_long_constants(harness)
+    L = 3100
+    lengths = np.array([0, 1, 2, 3, 4, 5, 19, 20, 35, 16 * lanes + 2,
+                        16 * lanes + 3, 16 * lanes + 4, 2 * 16 * lanes + 3,
+                        1000, L - 1, L] * 2, np.int32)
+    n = len(lengths)
+    codes, _, a1s, a1e, a2s, a2e = _le_long_rows(13, n, L)
+    rows = (codes, lengths, a1s, a1e, a2s, a2e)
+    th, verdicts = _le_tight_thresholds(rows)
+    plain = _low_entropy_through_thresholds(harness, rows, th)
+    np.testing.assert_array_equal(plain, verdicts)
+    assert not plain[[0, 1, 2, 3, 16, 17, 18, 19]].any()  # lengths 0-3
+    assert verdicts.sum() >= 4
+    _low_entropy_through(harness, rows, 0.3)
+
+
+# the per-position table is the JAX op's formula (arriba_tpu/ops/
+# readfilters.py _low_entropy_core: nb0 ... nb3 and tables)
+def test_le_table_is_the_jax_formula(harness):
+    e, s1, s2 = (jnp.array(x, bool) for x in zip(
+        *[(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]))
+    e_ = e.astype(jnp.int32)
+    ns1 = (~s1).astype(jnp.int32)
+    ns2 = (~s2).astype(jnp.int32)
+    tables = (e_ | ((2 | (e_ & ns1)) << 2) | ((e_ & ns2) << 4)
+              | ((2 | (e_ & ns1 & ns2)) << 6))
+    got = [harness.le_table_of(int(a), int(b), int(c))
+           for a, b, c in zip(e, s1, s2)]
+    assert got == np.asarray(tables).tolist()
+
+
+# le_compose is associative over every map of the four states, with the
+# identity table neutral on both sides, and composes f before g
+def test_le_compose_is_associative(harness):
+    assert harness.le_compose_errors() == 0
+    shift = 0x39  # s -> s + 1 (mod 4): 1, 2, 3, 0
+    to_zero = 0x00
+    assert harness.le_compose_of(shift, to_zero) == to_zero
+    assert harness.le_compose_of(to_zero, shift) == 0x55  # every s -> 1
+
+
+# over random rows, homopolymers, dinucleotides and short repeats, from
+# each start state at chunk starts on and off position 0: le_table composed
+# over the positions, and pass 1's walk from the four start states at once,
+# give le_select's selections walked in order, and pass 1's table of each
+# word prefix equals the composition
+_LE_KINDS = ("random", "homopolymer", "dinucleotide", "repeat3", "mixed")
+
+
+@pytest.mark.parametrize("kind", _LE_KINDS)
+def test_le_selection_ways_agree(harness, kind):
+    rng = np.random.default_rng(_LE_KINDS.index(kind))
+    L = 400
+    if kind == "random":
+        codes = rng.integers(0, 4, L)
+    elif kind == "homopolymer":
+        codes = np.full(L, 2)
+    elif kind == "dinucleotide":
+        codes = np.tile([1, 3], L)[:L]
+    elif kind == "repeat3":
+        codes = np.tile([0, 0, 1], L)[:L]
+    else:
+        codes = np.concatenate([np.full(50, 1), np.tile([0, 2], 40),
+                                rng.integers(0, 4, L - 130)])
+    packed = np.ascontiguousarray(
+        readfilters.pack_codes(codes[None, :].astype(np.uint8))[0])
+    n_pos = L - 3
+    for first in (0, 16, 48, 160):
+        for start in ((0,) if first == 0 else range(4)):
+            m = n_pos - first
+            ways = [np.zeros(m, np.uint8) for _ in range(3)]
+            tables = np.zeros(2 * ((m + 15) // 16), np.uint32)
+            harness.le_selection_ways(_ptr(packed), len(packed), first,
+                                      n_pos, start, *(_ptr(w) for w in ways),
+                                      _ptr(tables))
+            np.testing.assert_array_equal(ways[1], ways[0])
+            np.testing.assert_array_equal(ways[2], ways[0])
+            full = m // 16
+            np.testing.assert_array_equal(tables[0:2 * full:2],
+                                          tables[1:2 * full:2])
+            if kind in ("homopolymer", "dinucleotide"):
+                assert 0 < ways[0].sum() < m
 
 
 # stripes of 1, 2, 4, 8 and 16 read positions a lane; L not a multiple of 32

@@ -173,11 +173,18 @@ def test_smith_waterman_kernel_refuses_bytes_above_code_4(cuda, where,
                                                                 windows))
 
 
-# rows past the packed counters' 3,072 codes (the three-counter kernel),
-# the packed counters' widest rows, and a batch of rows too short to scan
+# rows of lanes x 3,069 + 100 codes: more tiles than the long-row kernel's
+# 10-bit fields hold, so that its lanes flush them
+LE_FLUSH_CODES = kernels.LE_LONG_LANES * 3069 + 100
+
+
+# rows past the packed counters' 3,072 codes (the long-row kernel: one tile
+# at 3,100 and 4,000 codes, and rows whose lanes flush), the packed
+# counters' widest rows, and a batch of rows too short to scan
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,short", [(3100, False), (3072, False),
-                                     (150, True)])
+                                     (150, True), (4000, False),
+                                     (LE_FLUSH_CODES, False)])
 def test_low_entropy_kernel_routes(cuda, L, short):
     import numpy as np
 
@@ -209,6 +216,35 @@ def test_low_entropy_kernel_routes(cuda, L, short):
         assert launch(packed.data_ptr(), meta.data_ptr(), out.data_ptr(),
                       *packed.shape,
                       torch.cuda.current_stream().cuda_stream) != 0
+
+
+# the long-row kernel on batches of fewer reads than a block holds (four
+# groups of 32 lanes), and one more: a homopolymer, a dinucleotide repeat
+# and random reads, equal to the plain version
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_low_entropy_long_kernel_few_rows(cuda, n):
+    import numpy as np
+
+    from chip_smoke import low_entropy_inputs
+
+    L = 4000
+    codes, lengths, a1s, a1e, a2s, a2e = low_entropy_inputs(seed=n, n=n, L=L)
+    codes[0] = 2
+    lengths[0] = L
+    if n > 1:
+        codes[1] = np.tile([0, 3], L // 2)
+    th = readfilters._thresholds(lengths, a1s, a1e, a2s, a2e, 0.6)
+    meta = torch.from_numpy(np.stack([lengths, a1s, a1e, a2s, a2e, *th], 1)
+                            .astype(np.int32)).to(cuda)
+    packed = torch.from_numpy(readfilters.pack_codes(codes)).to(cuda)
+    before = kernels.launch_counts["low_entropy_long"]
+    got = readfilters._low_entropy_core_packed(packed, L, meta)
+    assert kernels.launch_counts["low_entropy_long"] == before + 1
+    want = readfilters._low_entropy_core_plain(
+        readfilters._unpack_codes(packed, L), *meta.unbind(dim=1))
+    assert torch.equal(got, want)
+    assert bool(want[0])
 
 
 # the K2 kernel a packed row width launches: the packed counters up to
