@@ -6,9 +6,11 @@ the reference's bounded recursive seed-and-extend with splice-site and
 single-deletion recursion and early exit at 80 % identity. With device
 offload on (ARRIBA_TPU_TORCH_DEVICE=cuda or cpu), filter_mismappers first
 batches every (read sequence, padded gene window) pair it would realign
-through the device screen (ops/realign.screen_pairs, a sound shared-8-mer
-REJECT) and the exact single-seed ACCEPT (ops/realign.accept_pairs, kernel
-K1 on CUDA); only undecided pairs reach the exact recursion.
+through the device screen (ops/realign.screen_resident, kernel K5 on CUDA,
+a sound shared-8-mer REJECT) and the exact single-seed ACCEPT
+(ops/realign.accept_resident, kernel K1 on CUDA), both reading the distinct
+windows and reads from tables copied to the device once; only undecided
+pairs reach the exact recursion.
 """
 
 from __future__ import annotations
@@ -402,8 +404,10 @@ def collect_screen_tasks(fusions: Fusions,
     2/3 = discordant mate1/mate2 vs the partner's genes
     (filter_mismappers.cpp:282-341).
 
-    Returns (keys, seqs, windows, min_scores, accept_ok): min_scores is the
-    reference's per-call threshold arithmetic; accept_ok[i] is True only if
+    Returns (keys, seqs, windows, window_ids, min_scores, accept_ok):
+    window_ids[i] names the distinct window (contig, gene_start, gene_end)
+    of windows[i]; min_scores is the reference's per-call threshold
+    arithmetic; accept_ok[i] is True only if
     at least one fusion context actually runs align() for this pair (the
     intragenic same-contig skip at filter_mismappers.cpp:205-210 never
     fires) AND the host k-mer index provably covers the whole window (gene
@@ -415,8 +419,11 @@ def collect_screen_tasks(fusions: Fusions,
     keys: List[Tuple[str, int, int]] = []
     seqs: List[str] = []
     windows: List[np.ndarray] = []
+    window_ids: List[int] = []
     min_scores: List[int] = []
     accept_ok: List[bool] = []
+    # an id and a view a distinct window
+    views: Dict[Tuple[int, int, int], Tuple[int, np.ndarray]] = {}
 
     def add(name: str, kind: int, seq: str, read_length: int,
             gene_set, fraction: float, same_contig: bool,
@@ -451,7 +458,12 @@ def collect_screen_tasks(fusions: Fusions,
             seen[key] = len(keys)
             keys.append(key)
             seqs.append(seq)
-            windows.append(contig_sequence[gene_start:gene_end + 1])
+            window = views.get((contig, gene_start, gene_end))
+            if window is None:
+                window = views[(contig, gene_start, gene_end)] = (
+                    len(views), contig_sequence[gene_start:gene_end + 1])
+            window_ids.append(window[0])
+            windows.append(window[1])
             min_scores.append(min_score)
             accept_ok.append(not skipped and covered)
 
@@ -493,7 +505,7 @@ def collect_screen_tasks(fusions: Fusions,
                 min(min_align_fraction,
                     min_align_fraction * (1 - clipped_fraction2)),
                 same_contig, mate2.start, mate2.end)
-    return keys, seqs, windows, min_scores, accept_ok
+    return keys, seqs, windows, window_ids, min_scores, accept_ok
 
 
 def device_screen(fusions: Fusions, chimeric_alignments: ChimericAlignments,
@@ -507,24 +519,25 @@ def device_screen(fusions: Fusions, chimeric_alignments: ChimericAlignments,
     single-seed align() path reaches min_score (ops/realign.accept_wavefront
     reproduces the reference's scoring arithmetic), UNDECIDED otherwise
     (host recursion decides — only it can accept via splice/deletion
-    chains)."""
-    from ..ops.realign import accept_pairs, screen_pairs
-    keys, seqs, windows, min_scores, accept_ok = collect_screen_tasks(
-        fusions, chimeric_alignments, assembly, genes, max_mate_gap,
-        kmer_indices=kmer_indices)
+    chains). Both steps read the distinct windows and reads from tables
+    copied to the device once (ops/realign.resident_pairs): K5 screens
+    each pair against its whole window, K1's rows index the tables."""
+    from ..ops.realign import accept_resident, resident_pairs, screen_resident
+    keys, seqs, windows, window_ids, min_scores, accept_ok = \
+        collect_screen_tasks(fusions, chimeric_alignments, assembly, genes,
+                             max_mate_gap, kmer_indices=kmer_indices)
     if not keys:
         return {}
-    shared = screen_pairs(seqs, windows)
+    # the distinct windows and reads go to the device once, for both steps
+    resident = resident_pairs(seqs, windows, window_ids=window_ids)
+    shared = screen_resident(resident)
     verdict = np.where(shared, SCREEN_UNDECIDED, SCREEN_REJECT)
-    rows = [i for i in range(len(keys)) if shared[i] and accept_ok[i]]
-    if rows:
-        accepted = accept_pairs([seqs[i] for i in rows],
-                                [windows[i] for i in rows],
-                                [min_scores[i] for i in rows])
-        for i, acc in zip(rows, accepted):
-            if acc:
-                verdict[i] = SCREEN_ACCEPT
-    return {key: int(v) for key, v in zip(keys, verdict)}
+    rows = np.flatnonzero(shared & np.asarray(accept_ok, bool))
+    if len(rows):
+        accepted = accept_resident(resident, rows,
+                                   np.asarray(min_scores, np.int64)[rows])
+        verdict[rows[accepted]] = SCREEN_ACCEPT
+    return dict(zip(keys, verdict.tolist()))
 
 
 def filter_mismappers(fusions: Fusions, chimeric_alignments: ChimericAlignments,

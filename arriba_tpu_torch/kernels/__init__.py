@@ -6,12 +6,13 @@ launches on PyTorch's current stream into an output the caller allocated,
 and raises if the launch returned a CUDA error. It adds one to
 ``launch_counts[name]`` where it launches, and nowhere else, so a run can
 show that its main path went through the kernel; a kernel with a second
-variant counts it under its own name (``low_entropy_long``,
-``smith_waterman_wide16``, ``smith_waterman_wide``,
+variant counts it under its own name (``accept_wavefront_indexed``,
+``low_entropy_long``, ``smith_waterman_wide16``, ``smith_waterman_wide``,
 ``mxu_kmer_screen_any_k``). The value ranges of
-the row lengths are checked on the host where the callers build them; the
-kernels clamp those lengths to their rows, so no value can make them read
-outside their inputs.
+the row lengths and offsets are checked on the host where the callers
+build them; the kernels clamp those lengths to their rows and skip a row
+whose offsets leave its tables, so no value can make them read outside
+their inputs.
 
 The card answers every input the JAX ops answer. Where one kernel cannot
 carry an input exactly, the wrapper routes it to another hand kernel
@@ -24,7 +25,8 @@ and its any-k kernel every other k; K1 decides per row, inside the
 kernel, between its seed lookup and a walk of every diagonal. What is
 still refused is what would wrap the JAX op's own int32 arithmetic
 (``sw_wide_guard``) or what the JAX op itself fails on (k < 1).
-``accept_wavefront``, ``low_entropy``, ``smith_waterman`` and
+``accept_wavefront``, ``accept_wavefront_indexed``,
+``kmer_bitmap_screen``, ``low_entropy``, ``smith_waterman`` and
 ``mxu_kmer_screen`` allocate the output and return bool verdicts (int32
 scores for ``smith_waterman``). The plain PyTorch versions (the CPU path
 and the reference the kernels are held against) live beside their callers
@@ -33,7 +35,8 @@ in ``ops/``.
 
 from __future__ import annotations
 
-launch_counts = {"accept_wavefront": 0, "low_entropy": 0,
+launch_counts = {"accept_wavefront": 0, "accept_wavefront_indexed": 0,
+                 "kmer_bitmap_screen": 0, "low_entropy": 0,
                  "low_entropy_long": 0, "smith_waterman": 0,
                  "smith_waterman_wide16": 0, "smith_waterman_wide": 0,
                  "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0}
@@ -91,6 +94,94 @@ def launch_accept_wavefront(reads, windows, params, out) -> None:
                          "rows and params 5 columns")
     _launch("accept_wavefront", reads.data_ptr(), windows.data_ptr(),
             params.data_ptr(), out.data_ptr(), n, L, W)
+
+
+# the window table bytes K1's indexed entry reads past the last window's
+# end (csrc/accept_wavefront.cuh AW_TABLE_SLACK)
+AW_TABLE_SLACK = 16
+
+
+def launch_accept_wavefront_indexed(reads, table, offsets, params, out,
+                                    W: int) -> None:
+    """K1's indexed entry (csrc/accept_wavefront.cu) into out, int32 [N]
+    zeros, as launch_accept_wavefront but each row's bytes read by offset:
+    reads uint8 [R, L] (a read table: a row's read_len bytes from its read
+    offset), table uint8 [T] (a window table, AW_TABLE_SLACK bytes past its
+    last window), offsets int64 [N, 2] = (read offset into reads, window
+    offset into table), params int32 [N, 5] with 0 <= read_len <= L,
+    win_len <= W, and each row's spans inside its tables (the caller
+    checks them on the host)."""
+    import torch
+
+    _require(reads, "reads", torch.uint8, 2)
+    _require(table, "table", torch.uint8, 1)
+    _require(offsets, "offsets", torch.int64, 2)
+    _require(params, "params", torch.int32, 2)
+    _require(out, "out", torch.int32, 1)
+    n = offsets.shape[0]
+    if (offsets.shape[1] != 2 or tuple(params.shape) != (n, 5)
+            or out.shape[0] != n):
+        raise ValueError("offsets must be int64 [N, 2], params int32 [N, 5] "
+                         "and out int32 [N]")
+    _launch("accept_wavefront_indexed", reads.data_ptr(), table.data_ptr(),
+            offsets.data_ptr(), params.data_ptr(), out.data_ptr(), n,
+            reads.shape[1], W, reads.numel(), table.numel())
+
+
+def accept_wavefront_indexed(reads, table, offsets, params, W: int):
+    """K1's indexed entry: bool [N] per row (see
+    launch_accept_wavefront_indexed)."""
+    import torch
+
+    out = torch.zeros(offsets.shape[0], dtype=torch.int32,
+                      device=offsets.device)
+    launch_accept_wavefront_indexed(reads, table, offsets, params, out, W)
+    return out != 0
+
+
+def launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
+                              tasks, out) -> None:
+    """K5 (csrc/kmer_bitmap_screen.cu) into out, uint8 [N]: 1 where an
+    8-mer of the row's read, in either orientation, occurs in its window,
+    else 0. reads uint8 [2 R, L] holds raw rows (2 r forward, 2 r + 1
+    reverse complement; 0 past the read), table uint8 [T]
+    raw window bytes, offsets int64 [W] and lengths int32 [W] each window's
+    span of it, row_read int32 [N] each row's read id, the rows sorted by
+    window, and tasks int32 [K, 3] = (window, first row, end row) the rows
+    a block tests against one window's bitmap (ops/realign.screen_tasks).
+    No launch for N = 0 or K = 0."""
+    import torch
+
+    _require(reads, "reads", torch.uint8, 2)
+    _require(table, "table", torch.uint8, 1)
+    _require(offsets, "offsets", torch.int64, 1)
+    _require(lengths, "lengths", torch.int32, 1)
+    _require(row_read, "row_read", torch.int32, 1)
+    _require(tasks, "tasks", torch.int32, 2)
+    _require(out, "out", torch.uint8, 1)
+    n = row_read.shape[0]
+    if (lengths.shape[0] != offsets.shape[0] or tasks.shape[1] != 3
+            or out.shape[0] != n):
+        raise ValueError("lengths must match offsets, tasks be int32 "
+                         "[K, 3] and out uint8 [N]")
+    if n == 0 or tasks.shape[0] == 0:
+        return
+    _launch("kmer_bitmap_screen", reads.data_ptr(), table.data_ptr(),
+            offsets.data_ptr(), lengths.data_ptr(), row_read.data_ptr(),
+            tasks.data_ptr(), out.data_ptr(), n, tasks.shape[0],
+            reads.shape[1], reads.shape[0], offsets.shape[0], table.numel())
+
+
+def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks):
+    """K5: bool [N] shared-8-mer verdicts in the rows' order (see
+    launch_kmer_bitmap_screen); a row no task names stays False."""
+    import torch
+
+    out = torch.zeros(row_read.shape[0], dtype=torch.uint8,
+                      device=row_read.device)
+    launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
+                              tasks, out)
+    return out.view(torch.bool)
 
 
 # K1's "no active walk" score (csrc/accept_wavefront.cuh AW_NEG)

@@ -27,7 +27,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman",
-           "smith_waterman_wide", "mxu_kmer_screen")
+           "smith_waterman_wide", "mxu_kmer_screen", "kmer_bitmap_screen")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,13 @@ _SIGNATURES = {
     "accept_wavefront": ("arriba_accept_wavefront",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p]),
+    "accept_wavefront_indexed": ("arriba_accept_wavefront_indexed",
+                                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                 + [ctypes.c_longlong] * 2
+                                 + [ctypes.c_void_p]),
+    "kmer_bitmap_screen": ("arriba_kmer_bitmap_screen",
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong, ctypes.c_void_p]),
     "low_entropy": ("arriba_low_entropy",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]),
@@ -60,7 +67,8 @@ _SIGNATURES = {
                               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                               + [ctypes.c_void_p]),
 }
-_LIBRARIES = {"mxu_kmer_screen_any_k": "mxu_kmer_screen",
+_LIBRARIES = {"accept_wavefront_indexed": "accept_wavefront",
+              "mxu_kmer_screen_any_k": "mxu_kmer_screen",
               "smith_waterman_wide16": "smith_waterman_wide",
               "low_entropy_long": "low_entropy"}
 

@@ -21,8 +21,8 @@
 // a launch of 512 rows x 8,192 window bytes is 2,560 blocks. It
 //  1. clears a 65,536-bit bitmap in shared memory, stages the read, and
 //     stages the window stretch its strip's seeds can reach, as code bytes
-//     (16-byte loads where the rows are 16-byte aligned, each byte coded
-//     once);
+//     (16-byte loads from the 16-byte boundary before it where the rows or
+//     the table are 16-byte aligned, each byte coded once);
 //  2. sets the bit of the code 8-mer of every eligible read start and keeps
 //     the 8-mers in a list indexed by start;
 //  3. steps over the stretch's window positions, one thread a position:
@@ -42,7 +42,11 @@
 // walks every diagonal of its strip that holds a valid cell (walk_all),
 // with the plain version's arithmetic; the choice is per row, from params.
 // Rows sit on gridDim.y and gridDim.z (65,535 each), so any row count
-// launches.
+// launches. The dense entry (arriba_accept_wavefront) takes each row's
+// read and window bytes as rows of [N, L] and [N, W]; the indexed one
+// (arriba_accept_wavefront_indexed, the mismapper screen's path) reads
+// them by offset from a read table and a window table that sit on the
+// card once (accept_wavefront.cuh, aw_row_bytes), with the same steps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,9 +91,11 @@ __device__ __noinline__ void walk_all(const uint8_t* read,
 __global__ void __launch_bounds__(kBlock)
 accept_seeded_kernel(const uint8_t* __restrict__ reads,
                      const uint8_t* __restrict__ windows,
+                     const int64_t* __restrict__ offsets,
                      const int32_t* __restrict__ params,
                      int32_t* __restrict__ out, int n_rows, int L, int W,
-                     int strip, int vector_loads) {
+                     int strip, int vector_loads, long long read_bytes,
+                     long long table_bytes) {
     extern __shared__ __align__(16) uint8_t smem[];
     __shared__ int n_queue;
     __shared__ int done;
@@ -112,11 +118,18 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
     const int read_len = min(max(p[0], 0), L);
     const int win_len = min(p[1], W);
     const int min_score = p[2];
+    const uint8_t* read;
+    const uint8_t* window;
+    if (!arriba::aw_row_bytes(reads, windows, offsets, row, L, W, read_len,
+                              win_len, read_bytes, table_bytes, &read,
+                              &window)) {
+        return;  // a row outside its tables accepts nothing
+    }
     const int d_lo = -(L - 1) + (int)blockIdx.x * strip;
     const int d_hi = min(d_lo + strip, W) - 1;
     if (arriba::aw_walks_all(read_len, min_score)) {
-        walk_all(reads + (size_t)row * L, windows + (size_t)row * W, p,
-                 out + row, read_len, win_len, d_lo, d_hi, read_s);
+        walk_all(read, window, p, out + row, read_len, win_len, d_lo, d_hi,
+                 read_s);
         return;
     }
     const int n_seeds = arriba::aw_seed_starts(read_len, min_score);
@@ -129,17 +142,16 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
     // 1. clear, stage
     for (int w = tid; w < arriba::AW_BITMAP_WORDS; w += kBlock) bitmap[w] = 0;
     for (int w = tid; w < (strip + 31) / 32; w += kBlock) claimed[w] = 0;
-    const uint8_t* read = reads + (size_t)row * L;
     for (int t = tid; t < read_len; t += kBlock) read_s[t] = read[t];
-    const uint8_t* window = windows + (size_t)row * W;
-    const int end = je + arriba::AW_SEED;  // last byte read is je + 7
-    const int base = vector_loads ? jb & ~15 : jb;
+    // the stretch from window + jb - shift: 16-byte loads from an aligned
+    // address where vector_loads, each byte coded once
+    int shift, n_bytes;
+    arriba::aw_stage_span((uintptr_t)(window + jb), jb, je, vector_loads,
+                          &shift, &n_bytes);
+    const uint8_t* base = window + jb - shift;
     if (vector_loads) {
-        // rows start 16-byte aligned and W % 16 == 0, so the rounded-up
-        // end stays inside the row (end <= win_len - 2 < W)
-        const int n16 = (end - base + 15) >> 4;
-        for (int v = tid; v < n16; v += kBlock) {
-            const uint4 raw = *(const uint4*)(window + base + 16 * v);
+        for (int v = tid; v < n_bytes / 16; v += kBlock) {
+            const uint4 raw = *(const uint4*)(base + 16 * v);
             const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
             uint32_t coded[4];
 #pragma unroll
@@ -156,8 +168,8 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
                 make_uint4(coded[0], coded[1], coded[2], coded[3]);
         }
     } else {
-        for (int t = tid; t < end - base; t += kBlock) {
-            codes[t] = (uint8_t)arriba::aw_code_byte(window[base + t]);
+        for (int t = tid; t < n_bytes; t += kBlock) {
+            codes[t] = (uint8_t)arriba::aw_code_byte(base[t]);
         }
     }
     if (tid == 0) {
@@ -177,7 +189,8 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
 
     // 3. window scan, claim each named diagonal once
     for (int j = jb + tid; j <= je; j += kBlock) {
-        const int kmer = arriba::aw_window_seed(codes + (j - base), bitmap);
+        const int kmer =
+            arriba::aw_window_seed(codes + (j - jb + shift), bitmap);
         if (kmer < 0) continue;
         int s_lo, s_hi;
         arriba::aw_seed_span(j, d_lo, d_hi, n_seeds, &s_lo, &s_hi);
@@ -206,6 +219,30 @@ accept_seeded_kernel(const uint8_t* __restrict__ reads,
     if ((tid & 31) == 0 && ballot != 0) atomicOr(out + row, 1);
 }
 
+// one launch of n rows; offsets null for dense rows
+int launch(const void* reads, const void* windows, const void* offsets,
+           const void* params, void* out, int n, int L, int W,
+           int vector_loads, long long read_bytes, long long table_bytes,
+           void* stream) {
+    int strip, n_strips;
+    arriba::aw_strips(L, W, &strip, &n_strips);
+    if (n == 0 || n_strips == 0) return 0;
+    const int smem = arriba::aw_layout(L, strip).bytes;
+    if (smem > 48 * 1024) {
+        const cudaError_t code = cudaFuncSetAttribute(
+            accept_seeded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (code != cudaSuccess) return (int)code;
+    }
+    const int rows_y = n < 65535 ? n : 65535;
+    accept_seeded_kernel<<<dim3(n_strips, rows_y, (n + rows_y - 1) / rows_y),
+                           kBlock, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)reads, (const uint8_t*)windows,
+        (const int64_t*)offsets, (const int32_t*)params, (int32_t*)out, n, L,
+        W, strip, vector_loads, read_bytes, table_bytes);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -217,26 +254,32 @@ extern "C" {
 int arriba_accept_wavefront(const void* reads, const void* windows,
                             const void* params, void* out, int n, int L,
                             int W, void* stream) {
-    int strip, n_strips;
-    arriba::aw_strips(L, W, &strip, &n_strips);
-    if (n == 0 || n_strips == 0) return 0;
-    const int smem = arriba::aw_layout(L, strip).bytes;
     const int vector_loads = W % 16 == 0 && ((uintptr_t)windows & 15) == 0;
-    if (smem > 48 * 1024) {
-        const cudaError_t code = cudaFuncSetAttribute(
-            accept_seeded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
-        if (code != cudaSuccess) return (int)code;
-    }
-    const int rows_y = n < 65535 ? n : 65535;
-    accept_seeded_kernel<<<dim3(n_strips, rows_y, (n + rows_y - 1) / rows_y),
-                           kBlock, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)reads, (const uint8_t*)windows,
-        (const int32_t*)params, (int32_t*)out, n, L, W, strip, vector_loads);
-    return (int)cudaGetLastError();
+    return launch(reads, windows, nullptr, params, out, n, L, W,
+                  vector_loads, 0, 0, stream);
 }
 
 const char* arriba_accept_wavefront_error(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+// The same rows read by offset: reads uint8 [read_bytes] (a read table,
+// each read's bytes from its offset, at most L of them), table uint8
+// [table_bytes] (a window table, AW_TABLE_SLACK bytes past its last
+// window), offsets int64 [n, 2] (each row's read and window offsets),
+// params and out as above; per row 0 <= read_len <= L, win_len <= W, and
+// its read and window spans inside their tables.
+int arriba_accept_wavefront_indexed(const void* reads, const void* table,
+                                    const void* offsets, const void* params,
+                                    void* out, int n, int L, int W,
+                                    long long read_bytes,
+                                    long long table_bytes, void* stream) {
+    const int vector_loads = ((uintptr_t)table & 15) == 0;
+    return launch(reads, table, offsets, params, out, n, L, W, vector_loads,
+                  read_bytes, table_bytes, stream);
+}
+
+const char* arriba_accept_wavefront_indexed_error(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -248,6 +248,63 @@ __host__ __device__ inline void aw_all_span(int d_lo, int d_hi, int read_len,
     *last = d_hi < win_len - 1 ? d_hi : win_len - 1;
 }
 
+// ---------------------------------------------------------------------------
+// Where a row's bytes are.
+//
+// Dense rows (offsets null) sit at row * L of the reads and row * W of the
+// windows. Indexed rows (the mismapper screen's resident tables,
+// ops/realign.resident_pairs) read their bytes by offset: int64 [rows, 2] =
+// (read offset in the read table, window offset in the window table).
+// Nothing past a row's win_len bytes decides its verdict: the walks stop
+// before j = win_len (aw_diagonal) and a seed starts at j <= win_len - 10
+// (aw_eligible), so its staged 8-mer ends at win_len - 3. A dense row
+// pads its window with 1 past win_len; an indexed chunk of a longer window
+// has the window's next bytes there, which no step reads.
+
+constexpr int AW_TABLE_SLACK = 16;  // window table bytes past its last window
+
+// A row's read and window: dense, or at the row's offsets into a read
+// table of read_bytes and a window table of table_bytes, which must hold
+// the read's read_len bytes and the window's win_len bytes and
+// AW_TABLE_SLACK more (aw_stage_span's 16-byte loads); false for a row
+// outside them (the caller builds none such).
+__host__ __device__ inline bool aw_row_bytes(
+        const uint8_t* reads, const uint8_t* windows, const int64_t* offsets,
+        int row, int L, int W, int read_len, int win_len,
+        long long read_bytes, long long table_bytes, const uint8_t** read,
+        const uint8_t** window) {
+    if (offsets == nullptr) {
+        *read = reads + (long long)row * L;
+        *window = windows + (long long)row * W;
+        return true;
+    }
+    const long long ro = offsets[2 * (long long)row];
+    const long long wo = offsets[2 * (long long)row + 1];
+    const int wl = win_len > 0 ? win_len : 0;
+    if (ro < 0 || ro + read_len > read_bytes || wo < 0
+        || wo + wl + AW_TABLE_SLACK > table_bytes) {
+        return false;
+    }
+    *read = reads + ro;
+    *window = windows + wo;
+    return true;
+}
+
+// The window stretch a strip stages: positions [jb, je + 7] as code bytes,
+// *n_bytes of them from window + jb - *shift. With 16-byte loads
+// (vector_loads; address is that of window + jb) the first load starts at
+// the 16-byte boundary at or before it and *n_bytes is a multiple of 16:
+// the last byte read is at most 15 past je + 7, inside a dense row of W %
+// 16 == 0 bytes (je + 7 <= win_len - 3) or inside the table
+// (AW_TABLE_SLACK). Otherwise the stretch itself.
+__host__ __device__ inline void aw_stage_span(uint64_t address, int jb,
+                                              int je, int vector_loads,
+                                              int* shift, int* n_bytes) {
+    *shift = vector_loads ? (int)(address & 15) : 0;
+    const int n = je + AW_SEED - jb + *shift;
+    *n_bytes = vector_loads ? (n + 15) & ~15 : n;
+}
+
 // Shared-memory layout of one block (byte offsets, 16-aligned pieces):
 // the 8-mer bitmap, the claimed-diagonal bitset, the walk queue (diagonal
 // offsets into the strip), the read's seed 8-mers, the read bytes and the

@@ -5,11 +5,21 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
 (filter_mismappers.cpp:86-230). The device path splits the candidate
 (read, window) pairs into a tri-state verdict before that recursion:
 
-1. `screen_pairs` -> `shared_kmer_mask`, a *sound REJECT*: align() can only
-   accept a read if at least one 8-mer of the read occurs in the padded
-   gene window (the seed lookup at filter_mismappers.cpp:97-99). Plain
-   PyTorch: a per-row sort plus a batched searchsorted.
-2. `accept_pairs` -> `accept_wavefront`, an *exact single-seed ACCEPT*:
+0. `resident_pairs` copies the distinct gene windows and reads of a call
+   to the device once; a (read, window) pair is then two ids, and the two
+   steps below read the bytes there.
+1. `screen_pairs` / `screen_resident` -> `kmer_bitmap_screen`, a *sound
+   REJECT*: align() can only accept a read if at least one 8-mer of the
+   read occurs in the padded gene window (the seed lookup at
+   filter_mismappers.cpp:97-99). CUDA tensors run the hand-written kernel
+   K5 (kernels/csrc/kmer_bitmap_screen.cu: a window's 8-mers in a shared
+   bitmap, its pairs' read 8-mers tested against it), CPU tensors
+   `kmer_bitmap_screen_plain`. `shared_kmer_mask`, the per-row sorted
+   screen of the JAX package (a sort plus a batched searchsorted), stays
+   for the realign step below.
+2. `accept_pairs` / `accept_resident` -> `accept_wavefront_indexed` (rows
+   that read the resident tables by offset; `accept_wavefront` takes dense
+   rows), an *exact single-seed ACCEPT*:
    every single-seed align() path (seed 8-mer, left extension with <= 1
    mismatch, right extension at +1/-1 with the 4-consecutive-mismatch
    break, the outer-loop seed bound and the k-mer-index range) evaluated
@@ -36,6 +46,8 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -195,31 +207,14 @@ def realign_step(reads, windows, length,
 # ---------------------------------------------------------------------------
 # host-facing batching for the mismappers prefilter (filters/mismappers.py)
 
-# native kmer semantics (filter_mismappers.cpp:33-45): T=0, G=1, C=2,
+# The screen codes bytes as the native kmer_to_int does
+# (filter_mismappers.cpp:33-45, _kmer_codes_bytes): T=0, G=1, C=2,
 # everything else (incl. A and N) = 3 — so device read k-mers are a superset
 # of the native seed lookups and window k-mers a superset of the native
 # index (which drops N-start positions): the screen can only err permissive.
-_SCREEN_LUT = np.full(256, 3, np.uint8)
-_SCREEN_LUT[ord("T")] = 0
-_SCREEN_LUT[ord("G")] = 1
-_SCREEN_LUT[ord("C")] = 2
-
-# codes of the reverse complement must match _SCREEN_LUT applied to
-# reverse_complement_str(seq): complement the CHARACTER first (N stays N and
-# keeps code 3; a bare `code ^ 3` would wrongly send N -> code 0).
-_SCREEN_RC_LUT = _SCREEN_LUT[_COMPLEMENT_LUT]
-
-
-def _batches(rows, batch_rows: int):
-    """Group a row stream into lists of batch_rows (the last may be short)."""
-    batch = []
-    for row in rows:
-        batch.append(row)
-        if len(batch) == batch_rows:
-            yield batch
-            batch = []
-    if batch:
-        yield batch
+# The reverse complement is coded after the CHARACTER is complemented (N
+# stays N and keeps code 3; a bare `code ^ 3` would wrongly send N -> code
+# 0): K5 codes the raw reverse complement row that K1 reads.
 
 
 def _device(device):
@@ -229,8 +224,233 @@ def _device(device):
     return device
 
 
+# ---------------------------------------------------------------------------
+# the resident tables: each distinct gene window and read on the device once
+#
+# The windows of a call are gene windows, views into the assembly's contigs
+# (filters/mismappers.collect_screen_tasks), and many reads share each one.
+# resident_pairs copies every distinct window (named by the caller's window
+# id, or keyed by its view's address and length) once into one byte table
+# and every distinct read sequence once into a read table; a (read, window)
+# pair is then two ids, a row of K1 a few integers. K5, the 8-mer bitmap
+# screen, and K1's indexed entry read the bytes there.
+
+_WINDOW_ALIGN = 16   # each window starts on a 16-byte boundary of the table
+
+
+@dataclasses.dataclass
+class ResidentPairs:
+    """(read, window) pairs with their distinct windows and reads on one
+    device. Each window sits in ``table`` (uint8) at ``win_offset`` for
+    ``win_len`` bytes, from a 16-byte boundary, followed by _PAD_WIN up to
+    the next and kernels.AW_TABLE_SLACK bytes past the last. Read r is rows
+    2 r (forward) and 2 r + 1 (reverse complement) of ``accept_reads``
+    (raw bytes, _PAD_READ past the read), which K1 reads as they are and K5
+    codes as _kmer_codes_bytes does. ``uploaded`` counts the bytes
+    copied to the device: the windows, the reads, and the rows' integers
+    that screen_resident and accept_resident add."""
+    device: torch.device
+    pair_read: np.ndarray      # int64 [pairs]
+    pair_window: np.ndarray    # int64 [pairs]
+    read_len: np.ndarray       # int64 [reads]
+    win_offset: np.ndarray     # int64 [windows]
+    win_len: np.ndarray        # int64 [windows]
+    table: torch.Tensor
+    accept_reads: torch.Tensor
+    uploaded: dict
+
+
+def _row_width(longest: int, least: int) -> int:
+    return -(-max(least, longest) // 64) * 64
+
+
+def _view_ids(window_views) -> np.ndarray:
+    """int64 [n]: an id a window view, in order of first sight, the same
+    for views of one buffer at one address with one length and stride."""
+    ids: dict = {}
+    return np.fromiter(
+        (ids.setdefault((w.__array_interface__["data"][0], len(w),
+                         w.strides), len(ids))
+         for w in map(np.asarray, window_views)), np.int64,
+        len(window_views))
+
+
+def resident_pairs(read_seqs, window_views, device=None,
+                   window_ids=None) -> ResidentPairs:
+    """Copy the distinct windows and reads of (read_seqs[i],
+    window_views[i]) pairs to the device once (ResidentPairs). read_seqs:
+    list of str; window_views: list of uint8 numpy arrays, views into the
+    assembly; window_ids: an int a pair, equal for pairs of one window
+    (collect_screen_tasks gives them), else views of one buffer at one
+    address, length and stride share a window (_view_ids)."""
+    from .. import kernels
+
+    device = _device(device)
+    read_ids: dict = {}
+    pair_read = np.fromiter((read_ids.setdefault(seq, len(read_ids))
+                             for seq in read_seqs), np.int64, len(read_seqs))
+    ids = _view_ids(window_views) if window_ids is None else np.asarray(
+        window_ids, np.int64)
+    _, first, pair_window = np.unique(ids, return_index=True,
+                                      return_inverse=True)
+    pair_window = pair_window.reshape(-1).astype(np.int64)
+    windows = [np.asarray(window_views[i], np.uint8) for i in first]
+
+    win_len = np.fromiter(map(len, windows), np.int64, len(windows))
+    span = -(-win_len // _WINDOW_ALIGN) * _WINDOW_ALIGN
+    win_offset = np.cumsum(span) - span
+    host = np.full(int(span.sum()) + kernels.AW_TABLE_SLACK, _PAD_WIN,
+                   np.uint8)
+    for window, offset, length in zip(windows, win_offset, win_len):
+        host[offset:offset + length] = window
+
+    seqs = list(read_ids)
+    read_len = np.fromiter(map(len, seqs), np.int64, len(seqs))
+    width = _row_width(int(read_len.max(initial=0)), 16)
+    # each read and its reversal as a row of width bytes, 0 (_PAD_READ) past
+    # the read
+    pad = chr(_PAD_READ)
+    fwd, back = (np.frombuffer("".join(
+        (seq if forward else seq[::-1]).ljust(width, pad) for seq in seqs)
+        .encode("latin-1"), np.uint8).reshape(len(seqs), width)
+        for forward in (True, False))
+    accept = np.empty((2 * len(seqs), width), np.uint8)
+    accept[0::2] = fwd
+    accept[1::2] = _COMPLEMENT_LUT[back]
+    return ResidentPairs(
+        device, pair_read, pair_window, read_len, win_offset, win_len,
+        torch.from_numpy(host).to(device),
+        torch.from_numpy(accept).to(device),
+        {"windows": host.nbytes, "reads": accept.nbytes, "rows": 0})
+
+
+# K5's rows a block tests against one window's bitmap (screen_tasks)
+KB_TASK_ROWS = 256
+
+
+def screen_tasks(row_window: np.ndarray, rows_per_task: int = KB_TASK_ROWS):
+    """Order the rows by window and cut each window's rows into tasks of at
+    most rows_per_task: (order, int32 [tasks, 3] = (window, first row, end
+    row) of the rows in that order)."""
+    order = np.argsort(row_window, kind="stable")
+    ordered = row_window[order]
+    starts = np.flatnonzero(np.r_[True, ordered[1:] != ordered[:-1]]) if len(
+        ordered) else np.zeros(0, np.int64)
+    ends = np.r_[starts[1:], len(ordered)].astype(np.int64)
+    pieces = -(-(ends - starts) // rows_per_task)
+    run = np.repeat(np.arange(len(starts)), pieces)
+    begin = starts[run] + rows_per_task * (
+        np.arange(len(run)) - np.repeat(np.cumsum(pieces) - pieces, pieces))
+    end = np.minimum(begin + rows_per_task, ends[run])
+    tasks = np.stack([ordered[begin], begin, end], 1).astype(np.int32)
+    return order, tasks.reshape(-1, 3)
+
+
+def _task_rows(tasks: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 [n]: each row's window as the tasks name it, -1 for a row no
+    task names."""
+    t = tasks.long()
+    counts = (t[:, 2].clamp(max=n) - t[:, 1].clamp(min=0)).clamp(min=0)
+    first = torch.repeat_interleave(t[:, 1].clamp(min=0), counts)
+    step = torch.arange(int(counts.sum()), device=tasks.device) - \
+        torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    row_window = torch.full((n,), -1, dtype=torch.int64, device=tasks.device)
+    row_window[first + step] = torch.repeat_interleave(t[:, 0], counts)
+    return row_window
+
+
+def kmer_bitmap_screen_plain(reads, table, offsets, lengths, row_read,
+                             tasks) -> torch.Tensor:
+    """The plain PyTorch version of K5: bool [N], does an 8-mer of read
+    row_read[r] in either orientation (its raw rows 2 r and 2 r + 1 of
+    reads, _PAD_READ past the read; an 8-mer covering it counts not) occur
+    in the window the tasks give row r (its bytes
+    table[offsets[w]:][:lengths[w]])? Both are coded as _kmer_codes_bytes
+    codes them; the window 8-mers as sorted (window, 8-mer) keys, the read 8-mers
+    searched in them, 4,096 rows at a time."""
+    n = row_read.shape[0]
+    device = reads.device
+    verdict = torch.zeros(n, dtype=torch.bool, device=device)
+    row_window = _task_rows(tasks, n)
+    used = torch.unique(row_window[row_window >= 0])
+    if n == 0 or len(used) == 0:
+        return verdict
+    k = SEED_KMER_LENGTH
+    n_pos = (lengths.long()[used] - (k - 1)).clamp(min=0)
+    start = torch.repeat_interleave(offsets[used], n_pos) + (
+        torch.arange(int(n_pos.sum()), device=device)
+        - torch.repeat_interleave(torch.cumsum(n_pos, 0) - n_pos, n_pos))
+    kmer = torch.zeros_like(start)
+    for t in range(k):
+        kmer = kmer * 4 + _kmer_codes_bytes(table[start + t].long())
+    keys = torch.unique(torch.repeat_interleave(used, n_pos) * 4 ** k + kmer)
+    for a in range(0, n, 4096):
+        rows = torch.arange(a, min(a + 4096, n), device=device)
+        read = row_read[rows].long()
+        raw = torch.stack([reads[2 * read], reads[2 * read + 1]], 1)
+        codes = torch.where(raw == _PAD_READ, PAD_CODE,
+                            _kmer_codes_bytes(raw.long())).to(torch.uint8)
+        kmers = _packed_kmers(codes.flatten(0, 1), k).reshape(
+            len(rows), -1).long()
+        query = row_window[rows, None] * 4 ** k + kmers
+        at = torch.searchsorted(keys, query).clamp(max=len(keys) - 1)
+        hit = (keys[at] == query) & (kmers >= 0) & (
+            row_window[rows, None] >= 0)
+        verdict[rows] = hit.any(dim=1)
+    return verdict
+
+
+def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks):
+    """bool [N]: K5 for CUDA tensors, the plain version for CPU tensors
+    (see kmer_bitmap_screen_plain)."""
+    if reads.is_cuda:
+        from .. import kernels
+        return kernels.kmer_bitmap_screen(reads, table, offsets, lengths,
+                                          row_read, tasks)
+    return kmer_bitmap_screen_plain(reads, table, offsets, lengths,
+                                    row_read, tasks)
+
+
+def screen_inputs(resident: ResidentPairs, pairs: np.ndarray):
+    """K5's inputs for the pairs of resident named by index: (order, (reads,
+    table, offsets, lengths, row_read, tasks)), the rows being the pairs in
+    that order (sorted by window, screen_tasks) and the tensors on the
+    resident tables' device."""
+    device = resident.device
+    order, tasks = screen_tasks(resident.pair_window[pairs])
+    host = (resident.win_offset, resident.win_len.astype(np.int32),
+            resident.pair_read[pairs[order]].astype(np.int32), tasks)
+    resident.uploaded["rows"] += sum(x.nbytes for x in host)
+    offsets, lengths, row_read, tasks = (torch.from_numpy(x).to(device)
+                                         for x in host)
+    return order, (resident.accept_reads, resident.table, offsets, lengths,
+                   row_read, tasks)
+
+
+def screen_launches(resident: ResidentPairs, batch_rows: int = 1 << 20):
+    """K5's launches over every pair of resident, batch_rows pairs each,
+    the pairs sorted by window: (the pairs in the launch's row order,
+    kmer_bitmap_screen's arguments) a launch."""
+    order = np.argsort(resident.pair_window, kind="stable")
+    for a in range(0, len(order), batch_rows):
+        pairs = order[a:a + batch_rows]
+        within, args = screen_inputs(resident, pairs)
+        yield pairs[within], args
+
+
+def screen_resident(resident: ResidentPairs,
+                    batch_rows: int = 1 << 20) -> np.ndarray:
+    """[n] bool per pair of resident: the read shares an 8-mer with its
+    window in either orientation, K5 over the resident tables
+    (kmer_bitmap_screen), batch_rows pairs a launch (screen_launches)."""
+    result = np.zeros(len(resident.pair_read), bool)
+    for pairs, args in screen_launches(resident, batch_rows):
+        result[pairs] = kmer_bitmap_screen(*args).cpu().numpy()
+    return result
+
+
 def screen_pairs(read_seqs, window_views, window_chunk: int = 8192,
-                 batch_rows: int = 4096, device=None) -> np.ndarray:
+                 batch_rows: int = 1 << 20, device=None) -> np.ndarray:
     """[n] bool per (read, window) pair: the pair shares an 8-mer in either
     read orientation (a sound prefilter for the reference aligner — a pair
     without a shared seed can never be accepted by align()).
@@ -243,49 +463,16 @@ def screen_pairs(read_seqs, window_views, window_chunk: int = 8192,
 
     read_seqs: list of str (the sequences align_both_strands would try);
     window_views: list of uint8 numpy views into the assembly (the padded
-    gene windows). Long windows are split into chunks overlapping by k-1 so
-    rows stay fixed-shape; rows stream to the device batch_rows at a time.
-    """
-    n = len(read_seqs)
-    if n == 0:
+    gene windows). The distinct windows and reads go to the device once
+    (resident_pairs) and each pair is tested against its whole window
+    (screen_resident), batch_rows pairs a launch. window_chunk is ignored:
+    the JAX package cuts long windows into chunks of window_chunk bytes
+    overlapping by 7, so that every 8-mer of a window lies whole in one
+    chunk, and the verdict is the same for any window_chunk."""
+    if len(read_seqs) == 0:
         return np.zeros(0, bool)
-    device = _device(device)
-    k = SEED_KMER_LENGTH
-    max_read = max(len(seq) for seq in read_seqs)
-    L = -(-max(k, max_read) // 64) * 64
-
-    def rows():
-        for i, (seq, window) in enumerate(zip(read_seqs, window_views)):
-            raw = np.frombuffer(seq.encode("latin-1"), np.uint8)
-            fwd = np.full(L, PAD_CODE, np.uint8)
-            fwd[:len(raw)] = _SCREEN_LUT[raw]
-            rc = np.full(L, PAD_CODE, np.uint8)
-            rc[:len(raw)] = _SCREEN_RC_LUT[raw[::-1]]
-            for start in range(0, max(1, len(window)), window_chunk - (k - 1)):
-                chunk = window[start:start + window_chunk]
-                if len(chunk) < k and start > 0:
-                    break
-                padded = np.full(window_chunk, PAD_CODE, np.uint8)
-                padded[:len(chunk)] = _SCREEN_LUT[chunk]
-                yield i, fwd, padded
-                yield i, rc, padded
-                if start + window_chunk >= len(window):
-                    break
-
-    result = np.zeros(n, bool)
-    for index, batch in enumerate(_batches(rows(), batch_rows)):
-        pairs = np.fromiter((row[0] for row in batch), np.int64, len(batch))
-        reads = [row[1] for row in batch]
-        windows = [row[2] for row in batch]
-        # pad the trailing batch to a fixed shape (PAD rows screen to False)
-        if len(batch) < batch_rows and index > 0:
-            pad = batch_rows - len(batch)
-            reads += [np.full(L, PAD_CODE, np.uint8)] * pad
-            windows += [np.full(window_chunk, PAD_CODE, np.uint8)] * pad
-        hits = shared_kmer_mask(torch.from_numpy(np.stack(reads)).to(device),
-                                torch.from_numpy(np.stack(windows)).to(device))
-        np.logical_or.at(result, pairs, hits.cpu().numpy()[:len(batch)])
-    return result
+    return screen_resident(resident_pairs(read_seqs, window_views, device),
+                           batch_rows=batch_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +612,140 @@ def accept_wavefront(reads, windows, params) -> torch.Tensor:
     return accept_wavefront_plain(reads, windows, *params.unbind(dim=1))
 
 
+def accept_rows(read_len: np.ndarray, win_len: np.ndarray,
+                min_scores: np.ndarray, L: int, window_chunk: int = 8192):
+    """K1's rows of pairs (read_len, win_len, min_score), as the JAX
+    package's accept_pairs cuts them: each window into chunks of
+    window_chunk bytes at a stride of window_chunk - 2 L, chunk 0 seeding
+    in [0, stride + L - 1], a later chunk in [L, L + stride - 1] and only if
+    it holds at least L + 10 bytes; the chunks end with the first that
+    reaches the window's end. Each chunk gives a forward row, then a
+    reverse complement row. Returns (pair, orientation 0 / 1, the chunk's
+    offset in its window, params int32 [rows, 5] = (read_len, win_len,
+    min_score, seed_lo, seed_hi)), without a loop a row."""
+    stride = window_chunk - 2 * L
+    if stride <= 0:
+        raise ValueError(f"window_chunk {window_chunk} leaves no stride for "
+                         f"reads {L} wide")
+    read_len, win_len, min_scores = (np.asarray(x, np.int64) for x in (
+        read_len, win_len, min_scores))
+    # the first chunk that reaches the window's end, and whether it holds
+    # the L + 10 bytes a chunk past the first needs
+    last = np.maximum(0, -(-(win_len - window_chunk) // stride))
+    chunks = np.where(last == 0, 1, last + (win_len - last * stride >= L + 10))
+    pair = np.repeat(np.arange(len(win_len)), chunks)
+    c = np.arange(len(pair)) - np.repeat(np.cumsum(chunks) - chunks, chunks)
+    offset = c * stride
+    params = np.stack([
+        read_len[pair],
+        np.clip(win_len[pair] - offset, 0, window_chunk),
+        min_scores[pair],
+        np.where(c == 0, 0, L),
+        np.full(len(pair), stride + L - 1)], 1).astype(np.int32)
+    return (np.repeat(pair, 2), np.tile([0, 1], len(pair)),
+            np.repeat(offset, 2), np.repeat(params, 2, axis=0))
+
+
+def accept_wavefront_indexed_plain(reads, table, offsets, params, W: int,
+                                   batch_rows: int = 512) -> torch.Tensor:
+    """The plain version of K1's indexed entry: bool [N], each row's read
+    (read_len bytes of reads, flattened, from offsets[:, 0]; _PAD_READ past
+    them) and window (win_len bytes of table from offsets[:, 1]; _PAD_WIN
+    past them, W wide) through accept_wavefront_plain, batch_rows rows at
+    a time."""
+    n = offsets.shape[0]
+    device = offsets.device
+    flat = reads.reshape(-1)
+    L = reads.shape[1]
+    verdict = torch.zeros(n, dtype=torch.bool, device=device)
+    lanes_r = torch.arange(L, device=device)
+    lanes_w = torch.arange(W, device=device)
+    for a in range(0, n, batch_rows):
+        off = offsets[a:a + batch_rows].long()
+        p = params[a:a + batch_rows]
+        r = flat[(off[:, :1] + lanes_r).clamp(0, flat.numel() - 1)]
+        r = torch.where(lanes_r < p[:, :1], r, _PAD_READ)
+        w = table[(off[:, 1:] + lanes_w).clamp(0, table.numel() - 1)]
+        w = torch.where(lanes_w < p[:, 1:2], w, _PAD_WIN)
+        verdict[a:a + batch_rows] = accept_wavefront_plain(
+            r, w, *p.unbind(dim=1))
+    return verdict
+
+
+def accept_wavefront_indexed(reads, table, offsets, params,
+                             W: int) -> torch.Tensor:
+    """bool [N]: K1's indexed entry for CUDA tensors, the plain version for
+    CPU tensors. reads uint8 [R, L] a read table, table uint8 [T] a window
+    table, offsets int64 [N, 2] = (read offset into reads, window offset
+    into table), params int32 [N, 5] as accept_wavefront's, win_len <= W."""
+    if reads.is_cuda:
+        from .. import kernels
+        return kernels.accept_wavefront_indexed(reads, table, offsets,
+                                                params, W)
+    return accept_wavefront_indexed_plain(reads, table, offsets, params, W)
+
+
+def resident_accept_rows(resident: ResidentPairs, pairs: np.ndarray,
+                         min_scores, window_chunk: int = 8192):
+    """K1's rows of the pairs of resident named by index (accept_rows, at
+    the width L of the JAX package's accept_pairs over these pairs):
+    (row_pair, offsets int64 [rows, 2] = (read offset into
+    resident.accept_reads, window offset into resident.table), params int32
+    [rows, 5]), each row's read and window spans inside their tables."""
+    read = resident.pair_read[pairs]
+    window = resident.pair_window[pairs]
+    read_len = resident.read_len[read]
+    L = _row_width(int(read_len.max(initial=0)), 16)
+    row_pair, orient, chunk, params = accept_rows(
+        read_len, resident.win_len[window], min_scores, L, window_chunk)
+    width = resident.accept_reads.shape[1]
+    offsets = np.stack([(2 * read[row_pair] + orient) * width,
+                        resident.win_offset[window[row_pair]] + chunk], 1)
+    return row_pair, offsets, params
+
+
+def accept_launches(resident: ResidentPairs, pairs: np.ndarray, min_scores,
+                    window_chunk: int = 8192, batch_rows: int = 1 << 20):
+    """K1's launches over the rows of the pairs of resident named by index
+    (resident_accept_rows), batch_rows rows each: (each row's index into
+    pairs, on the device; accept_wavefront_indexed's arguments) a
+    launch."""
+    row_pair, offsets, params = resident_accept_rows(
+        resident, pairs, min_scores, window_chunk)
+    for a in range(0, len(row_pair), batch_rows):
+        b = slice(a, a + batch_rows)
+        host = (offsets[b], params[b], row_pair[b].astype(np.int32))
+        resident.uploaded["rows"] += sum(x.nbytes for x in host)
+        off_d, params_d, pair_d = (torch.from_numpy(x).to(resident.device)
+                                   for x in host)
+        yield pair_d, (resident.accept_reads, resident.table, off_d,
+                       params_d, window_chunk)
+
+
+def accept_resident(resident: ResidentPairs, pairs, min_scores,
+                    window_chunk: int = 8192,
+                    batch_rows: int = 1 << 20) -> np.ndarray:
+    """[n] bool per pair of resident named by index in pairs: a
+    single-seed align() path in EITHER read orientation reaches min_scores
+    (sound accept — see accept_wavefront_plain). K1's rows index the
+    resident tables (accept_wavefront_indexed), batch_rows rows a launch
+    (accept_launches); the rows' verdicts fold onto their pairs on the
+    device (a scatter-max) and come to the host once."""
+    pairs = np.asarray(pairs, np.int64)
+    if len(pairs) == 0:
+        return np.zeros(0, bool)
+    verdict = torch.zeros(len(pairs), dtype=torch.int32,
+                          device=resident.device)
+    for row_pair, args in accept_launches(resident, pairs, min_scores,
+                                          window_chunk, batch_rows):
+        hits = accept_wavefront_indexed(*args)
+        verdict.scatter_reduce_(0, row_pair.long(), hits.to(torch.int32),
+                                "amax")
+    return verdict.cpu().numpy() != 0
+
+
 def accept_pairs(read_seqs, window_views, min_scores,
-                 window_chunk: int = 8192, batch_rows: int = 512,
+                 window_chunk: int = 8192, batch_rows: int = 1 << 20,
                  device=None) -> np.ndarray:
     """[n] bool per (read, window) pair: a single-seed align() path in
     EITHER read orientation reaches min_score (sound accept — see
@@ -435,68 +754,14 @@ def accept_pairs(read_seqs, window_views, min_scores,
     windows align() searches); min_scores: list of int (the reference's
     min_align_fraction arithmetic, computed by the caller).
 
-    Windows split into chunks of window_chunk bytes that overlap by 2 L,
-    each chunk restricting seeds to its own stride (seed_lo, seed_hi);
-    rows stream to the device batch_rows at a time."""
+    The distinct windows and reads go to the device once (resident_pairs);
+    windows split into chunks of window_chunk bytes that overlap by 2 L,
+    each chunk restricting seeds to its own stride (seed_lo, seed_hi), and
+    each chunk's rows read the resident bytes by offset (accept_resident),
+    batch_rows rows a launch."""
     n = len(read_seqs)
     if n == 0:
         return np.zeros(0, bool)
-    device = _device(device)
-    from ..seq import reverse_complement_str
-
-    max_read = max(len(seq) for seq in read_seqs)
-    L = -(-max(16, max_read) // 64) * 64
-    stride = window_chunk - 2 * L
-    assert stride > 0
-
-    def rows():
-        for i, (seq, window) in enumerate(zip(read_seqs, window_views)):
-            raw = np.frombuffer(seq.encode("latin-1"), np.uint8)
-            fwd = np.full(L, _PAD_READ, np.uint8)
-            fwd[:len(raw)] = raw
-            rc_raw = np.frombuffer(
-                reverse_complement_str(seq).encode("latin-1"), np.uint8)
-            rc = np.full(L, _PAD_READ, np.uint8)
-            rc[:len(rc_raw)] = rc_raw
-            ms = int(min_scores[i])
-            c = 0
-            while True:
-                offset = c * stride
-                chunk = window[offset:offset + window_chunk]
-                lo = 0 if c == 0 else L
-                hi = lo + stride - 1 if c > 0 else stride + L - 1
-                if lo > len(chunk) - 10 and c > 0:
-                    break
-                padded = np.full(window_chunk, _PAD_WIN, np.uint8)
-                padded[:len(chunk)] = chunk
-                meta = (len(raw), len(chunk), ms, lo, hi)
-                yield i, fwd, padded, meta
-                yield i, rc, padded, meta
-                c += 1
-                if offset + window_chunk >= len(window):
-                    break
-
-    result = np.zeros(n, bool)
-    for index, batch in enumerate(_batches(rows(), batch_rows)):
-        pairs = np.fromiter((row[0] for row in batch), np.int64, len(batch))
-        reads = [row[1] for row in batch]
-        windows = [row[2] for row in batch]
-        # read_len <= L and win_len <= window_chunk by construction: what K1
-        # requires of a row holds without a check on the card
-        params = np.zeros((len(batch), 5), np.int32)
-        params[:, 2] = 2 ** 20   # padded rows: unreachable min_score
-        params[:len(batch)] = [row[3] for row in batch]
-        if len(batch) < batch_rows and index > 0:
-            pad = batch_rows - len(batch)
-            reads += [np.full(L, _PAD_READ, np.uint8)] * pad
-            windows += [np.full(window_chunk, _PAD_WIN, np.uint8)] * pad
-            padded_params = np.zeros((batch_rows, 5), np.int32)
-            padded_params[:, 2] = 2 ** 20
-            padded_params[:len(batch)] = params
-            params = padded_params
-        hits = accept_wavefront(
-            torch.from_numpy(np.stack(reads)).to(device),
-            torch.from_numpy(np.stack(windows)).to(device),
-            torch.from_numpy(params).to(device))
-        np.logical_or.at(result, pairs, hits.cpu().numpy()[:len(batch)])
-    return result
+    return accept_resident(resident_pairs(read_seqs, window_views, device),
+                           np.arange(n), min_scores, window_chunk,
+                           batch_rows)

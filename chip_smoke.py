@@ -5,6 +5,7 @@
     python3 chip_smoke.py --against KERNEL SOURCE [SOURCE ...]
     python3 chip_smoke.py --instruction-rates
     python3 chip_smoke.py --k4-occupancy
+    python3 chip_smoke.py --run-a CHECKOUT [CHECKOUT ...]
 
 The second form only times one kernel (accept_wavefront, low_entropy,
 smith_waterman, smith_waterman_wide, mxu_kmer_screen at k = 8 or
@@ -17,7 +18,10 @@ a SOURCE is a csrc directory, such as an earlier commit's unpacked with
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
 16x2 instructions K3's cells run against LOP3's (instruction_rates). The
 fourth times K4 on the full product at 1-4 rows an SM (mxu_occupancy).
-Phases of the first (any failure exits non-zero, and no result line is
+The fifth runs run A (below) of each checkout directory in turn, each in
+its own process with its own package and kernels, on this checkout's
+sample, and holds their outputs byte-equal (run_a_against): give the
+parent, this checkout, this checkout, the parent. Phases of the first (any failure exits non-zero, and no result line is
 printed):
 
 0. The card: ``nvidia-smi`` name and power limit, maximum SM clock,
@@ -55,6 +59,23 @@ printed):
    the mixed rows at each of the two k, every verdict checked); K1 on 512
    x 192 x 2,048 rows of which half walk every diagonal (min_score -2^20 +
    1 or read_len - 2^20) and on 70,000 rows of 64 x 64 in one launch.
+   Then the two kernels of the mismapper screen on resident tables
+   (realign.resident_pairs): K5 (the 8-mer bitmap screen) on
+   RESIDENT_CASES, each laid out as resident_pairs packs it and with the
+   contig itself as the window table (resident_layouts: unaligned windows
+   whose next bytes continue them): the main path's shape (32,768 pairs of
+   150 bp reads against 128 gene windows of 20-80 kb), windows whose tail
+   continues the read, windows of 0-17 bytes, reads with N, windows at the
+   edges of K1's chunks, one window shared by 10,000 rows (also as one
+   task; the main and shared cases also in tasks of 64 rows); K1's
+   indexed entry on K1's main rows at unaligned offsets (and against the
+   dense entry) and on the first 5,000 pairs of the other
+   cases in both layouts (check_kmer_bitmap_screen,
+   check_accept_indexed). K5's bound counts its work from its inputs
+   (kb_work: each distinct window's positions once, each row's tests up to
+   its first set bit); its library_ms is the sorted screen
+   (realign.shared_kmer_mask, torch.sort and torch.searchsorted) on the
+   chunked rows it took before (sorted_screen_ms), which must agree.
    Kernel time
    is the median of 20 CUDA-event timed windows after a warm-up, inputs
    checked and output allocated ahead: single launches for K1, whose output
@@ -72,7 +93,7 @@ printed):
    through the port's CLI, in-process: (A) offload on the card with the
    event-level stages in Python (ARRIBA_TPU_TORCH_DEVICE=cuda
    ARRIBA_TPU_TORCH_NO_NATIVE_EVENT=1), which runs K2 in the read cascade and
-   K1 in filter_mismappers; (B) the host path (DEVICE=off); (C) offload with
+   K5 and K1's indexed entry in filter_mismappers; (B) the host path (DEVICE=off); (C) offload with
    the default native event stages (K2 only). Then, on the same sample with
    a tenth of its chimeric fragments (build_tier2_tenth), its own host run
    (B10) and: (D) C with the mid-cascade statistics over four row shards on
@@ -81,8 +102,16 @@ printed):
    clusters and checks them against the host fusion table. Both run the
    Python event stages from the e-value stage on, so K1 and the 8-mer
    screen too. The output files and every stage counter must be byte-equal
-   across the runs of each sample, and K1 and K2 must have launched in run
-   A. Each run reports its seconds and those of the offloaded ops.
+   across the runs of each sample; K5, K1's indexed entry and K2 must have
+   launched in run A, K5 and K1's indexed entry in D and E, and run A must
+   not call the sorted screen. Each run reports its seconds, those of the
+   offloaded ops and the bytes its resident tables copied to the card.
+   Then each launch of K5 and of K1's indexed entry that run A made is made
+   again on the same tensors and held against its plain version, K5 on
+   every row, K1 on a stride of MAIN_K1_SAMPLE rows through them, and once
+   more with run A's one-sided verdicts broken up (K5's windows cut to
+   MAIN_KB_WINDOW_CUT bytes, K1's min_score lowered), where both verdicts
+   must occur (check_main_launches).
 4. The flagship step (arriba_tpu_torch.entry) on the card against the CPU.
 5. The data-parallel path at full size: entry.sharded_check on run A's
    pipeline state at 1 and 4 row shards on the card (the filter step over
@@ -96,8 +125,9 @@ printed):
    package's bench calls its twin, equal to the sorted screen, and the
    bench's other number: the port's sorted screen (shared_kmer_mask, plain
    torch) timed on the same rows (mxu_path); the same op at each k of
-   MXU_ANY_K (mxu_any_k_path), K1's op on 70,000 rows a quarter of
-   which walk every diagonal (accept_path), the Smith-Waterman op on
+   MXU_ANY_K (mxu_any_k_path), K1's op (its dense entry) on 70,000 rows
+   a quarter of which walk every diagonal (accept_path), the
+   Smith-Waterman op on
    4,096 x 1,024 x 2,048 rows with bytes 5-255, which K3w's 32-bit lanes
    score (sww_path), and the low-entropy scan on 2,048 reads of 4,000
    codes, which K2's long-row kernel takes (low_entropy_long_path).
@@ -1355,6 +1385,672 @@ def check_accept_variants() -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 2: K5 and K1's indexed entry on resident tables
+
+# K5, one position of a distinct window (the work sets each window's bitmap
+# once; the kernel's blocks that share a window set it again):
+KB_SCAN_OPS = {"base code": 4, "rolling 8-mer": 3, "bitmap word and bit": 3,
+               "set the bit": 1, "loop": 2}
+# K5, one read 8-mer tested, up to and with a row's first set bit (every
+# test of a row without one):
+KB_TEST_OPS = {"code and PAD test": 2, "rolling 8-mer": 3,
+               "bitmap word and bit": 3, "test": 1, "loop": 2}
+KB_OPS_PER_POSITION = sum(KB_SCAN_OPS.values())  # 13
+KB_OPS_PER_TEST = sum(KB_TEST_OPS.values())      # 11
+
+# the resident cases (resident_case): the main path's shape, then the edges
+RESIDENT_CASES = ("main", "tail", "short", "reads_n", "chunk_edges",
+                  "shared_10000")
+# the pairs of a case K1's plain version takes on the card (its cost grows
+# with rows x (read + window) steps): shared_10000's first 5,000, 10,000
+# rows of its one window
+RESIDENT_K1_PAIRS = 5000
+
+
+def resident_main(seed: int = 53, contig_len: int = 4_000_000,
+                  n_windows: int = 128, win_lo: int = 20_000,
+                  win_hi: int = 80_000, n_pairs: int = 32_768,
+                  read_len: int = 150):
+    """The screen's main-path shape: gene windows (gene plus twice the mate
+    gap and read length, 20-80 kb) of one random contig with 0.5 % N,
+    chosen by pairs with a 1 / rank skew, and 150 bp reads: by pair % 8
+    copies of the window (0), their reverse complements (1), copies with
+    40 substitutions (2), reads across the window's end (3, 4; the bytes
+    past it continue the read), random reads (5, 6), and pair 7 the read
+    of pair 6 against another window. (contig, spans, reads, min_scores)"""
+    import numpy as np
+
+    from arriba_tpu_torch.seq import COMPLEMENT_LUT
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTN", np.uint8)
+    contig = alphabet[rng.choice(5, contig_len,
+                                 p=[.24875, .24875, .24875, .24875, .005])]
+    lens = rng.integers(win_lo, win_hi, n_windows)
+    starts = rng.integers(0, contig_len - win_hi - read_len, n_windows)
+    weights = 1.0 / np.arange(1, n_windows + 1)
+    pick = rng.choice(n_windows, n_pairs, p=weights / weights.sum())
+    spans, reads = [], []
+    for i, w in enumerate(pick):
+        a, n = int(starts[w]), int(lens[w])
+        kind = i % 8
+        if kind == 7:
+            reads.append(reads[-1])
+        elif kind in (3, 4):
+            s = a + n - read_len // 2
+            reads.append(contig[s:s + read_len].tobytes().decode())
+        elif kind in (5, 6):
+            reads.append(alphabet[rng.integers(0, 4, read_len)]
+                         .tobytes().decode())
+        else:
+            s = int(rng.integers(a, a + n - read_len))
+            read = contig[s:s + read_len].copy()
+            if kind == 1:
+                read = COMPLEMENT_LUT[read][::-1]
+            elif kind == 2:
+                read[rng.integers(0, read_len, 40)] = alphabet[
+                    rng.integers(0, 4, 40)]
+            reads.append(read.tobytes().decode())
+        spans.append((a, n))
+    return contig, spans, reads, [int(0.8 * len(s) + 0.5) for s in reads]
+
+
+RESIDENT_TAIL_LENGTHS = (0, 7, 20, 100, 1000, 4096, 8190, 8192, 8193,
+                         16000, 16384, 17000)
+
+
+def resident_tail(read_len: int = 150, lengths=RESIDENT_TAIL_LENGTHS):
+    """Windows whose next bytes continue the read: each window a run of
+    A (by default 0 to 17,000 bytes, at and around 8,192 and 16,384),
+    followed in the contig by G and C bytes. A screen read (seven A, then
+    G and C) has no 8-mer inside its window, its first across the
+    window's end by one byte; an accept read (119 A, then 31 G and C)
+    matches 119 bytes inside, 120 with one byte past the end, at min_score
+    120. Both verdicts are False; reading one byte past a window makes
+    them True."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    contig, spans, reads = [], [], []
+    at = 0
+    for n in lengths:
+        gc = np.frombuffer(b"GC", np.uint8)[rng.integers(0, 2, 200)]
+        contig += [np.full(n, ord("A"), np.uint8), gc]
+        for inside in (7, 119):
+            inside = min(inside, n)
+            reads.append(("A" * inside + gc[:read_len - inside].tobytes()
+                          .decode()))
+            spans.append((at, n))
+        at += n + len(gc)
+    return (np.concatenate(contig), spans, reads,
+            [int(0.8 * len(s) + 0.5) for s in reads])
+
+
+def resident_short():
+    """Windows of 0, 1, 7, 8, 9, 10, 16 and 17 bytes, each against reads
+    that hold it with 3 bytes either side and against reads of 0, 5, 8, 9
+    and 30 bytes from elsewhere."""
+    import numpy as np
+
+    rng = np.random.default_rng(67)
+    contig = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 2000)]
+    spans = [(100 * (k + 1), n) for k, n in enumerate((0, 1, 7, 8, 9, 10, 16,
+                                                       17))]
+    reads = [contig[a - 3:a + n + 3].tobytes().decode() for a, n in spans]
+    reads += [contig[1500:1500 + n].tobytes().decode()
+              for n in (0, 5, 8, 9, 30)]
+    pairs = [(read, span) for read in reads for span in spans]
+    return (contig, [span for _, span in pairs], [read for read, _ in pairs],
+            [int(0.8 * len(read) + 0.5) for read, _ in pairs])
+
+
+def resident_reads_n():
+    """Reads with N: copies of 32 windows (300-3,000 bytes, N runs in the
+    contig) with 1-5 bytes turned to N, all-N reads, and random reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(71)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    contig = alphabet[rng.integers(0, 4, 200_000)]
+    for at in rng.integers(0, len(contig) - 20, 200):
+        contig[at:at + int(rng.integers(1, 20))] = ord("N")
+    spans, reads = [], []
+    for w in range(32):
+        a, n = int(rng.integers(0, 190_000)), int(rng.integers(300, 3000))
+        for kind in range(4):
+            if kind < 2:
+                s = int(rng.integers(a, a + n - 150))
+                read = contig[s:s + 150].copy()
+                read[rng.integers(0, 150, int(rng.integers(1, 6)))] = ord("N")
+            elif kind == 2:
+                read = np.full(int(rng.integers(8, 150)), ord("N"), np.uint8)
+            else:
+                read = alphabet[rng.integers(0, 4, 150)]
+            reads.append(read.tobytes().decode())
+            spans.append((a, n))
+    return (contig, spans, reads,
+            [int(0.8 * len(s) + 0.5) for s in reads])
+
+
+def resident_chunk_edges(window_chunk: int = 8192, L: int = 192):
+    """Windows of window_chunk - 1, window_chunk and window_chunk + 1 bytes
+    and one and two strides (window_chunk - 2 L) past them, with 150 bp
+    reads copied from each window's end, from across each chunk's end and
+    from across each stride's start."""
+    import numpy as np
+
+    rng = np.random.default_rng(73)
+    stride = window_chunk - 2 * L
+    contig = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 400_000)]
+    spans, reads = [], []
+    at = 1000
+    for extra in (0, stride, 2 * stride):
+        for delta in (-1, 0, 1):
+            n = window_chunk + extra + delta
+            cuts = {n - 150, window_chunk - 75, stride - 75,
+                    stride + window_chunk - 75}
+            for s in sorted(c for c in cuts if 0 <= c <= n - 150):
+                reads.append(contig[at + s:at + s + 150].tobytes().decode())
+                spans.append((at, n))
+            at += n + 500
+    return (contig, spans, reads,
+            [int(0.8 * len(s) + 0.5) for s in reads])
+
+
+def resident_shared(n_pairs: int = 10_000, window_len: int = 600):
+    """One window of window_len bytes shared by n_pairs reads of 10-150
+    bytes: every third a copy from the window, the others random."""
+    import numpy as np
+
+    rng = np.random.default_rng(79)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    contig = alphabet[rng.integers(0, 4, window_len + 100)]
+    reads = []
+    for i in range(n_pairs):
+        n = int(rng.integers(10, 151))
+        if i % 3 == 0:
+            s = int(rng.integers(50, 50 + window_len - n))
+            reads.append(contig[s:s + n].tobytes().decode())
+        else:
+            reads.append(alphabet[rng.integers(0, 4, n)].tobytes().decode())
+    return (contig, [(50, window_len)] * n_pairs, reads,
+            [int(0.8 * len(s) + 0.5) for s in reads])
+
+
+def resident_case(name: str):
+    """(contig, spans, reads, min_scores) of a resident case: pair i is
+    reads[i] against contig[spans[i][0]:][:spans[i][1]]."""
+    return {"main": resident_main, "tail": resident_tail,
+            "short": resident_short, "reads_n": resident_reads_n,
+            "chunk_edges": resident_chunk_edges,
+            "shared_10000": resident_shared}[name]()
+
+
+def resident_layouts(case, device) -> dict:
+    """A case's pairs on device two ways: "packed", as realign.resident_pairs
+    packs them (each distinct window from a 16-byte boundary, 1 bytes up to
+    the next), and "contig", the same reads with the contig itself as the
+    window table (each window at its own offset, unaligned, and the bytes
+    past its end the contig's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    contig, spans, reads, _ = case
+    packed = realign.resident_pairs(
+        reads, [contig[a:a + n] for a, n in spans], device)
+    first = np.unique(packed.pair_window, return_index=True)[1]
+    table = np.concatenate([contig, np.ones(kernels.AW_TABLE_SLACK,
+                                            np.uint8)])
+    in_contig = dataclasses.replace(
+        packed, table=torch.from_numpy(table).to(device),
+        win_offset=np.array([spans[i][0] for i in first], np.int64),
+        uploaded=dict(packed.uploaded))
+    return {"packed": packed, "contig": in_contig}
+
+
+def read_codes(raw):
+    """The screen's codes of raw read rows: kmer_to_int's (T 0, G 1, C 2,
+    any other byte 3), PAD_CODE where the row holds byte 0 (past the
+    read)."""
+    import torch
+
+    from arriba_tpu_torch.ops import realign
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    return torch.where(raw == 0, PAD_CODE, realign._kmer_codes_bytes(
+        raw.long())).to(torch.uint8)
+
+
+def kb_work(reads, table, offsets, lengths, row_read, tasks) -> dict:
+    """The work K5 needs on these inputs, counted with plain torch ops on
+    their device: the positions of each distinct window its tasks name
+    (each window's bitmap set once), and each row's tests in the kernel's
+    order (the forward row's 8-mers, then the reverse complement's) up to
+    and with its first set bit, or all of them; with the verdicts that
+    gives ("hit"), for a check against the plain version."""
+    import torch
+
+    from arriba_tpu_torch.ops import realign
+
+    n = row_read.shape[0]
+    row_window = realign._task_rows(tasks, n)
+    used = torch.unique(row_window[row_window >= 0])
+    n_pos = (lengths.long()[used] - 7).clamp(min=0)
+    start = torch.repeat_interleave(offsets[used], n_pos) + (
+        torch.arange(int(n_pos.sum()), device=reads.device)
+        - torch.repeat_interleave(torch.cumsum(n_pos, 0) - n_pos, n_pos))
+    code = realign._kmer_codes_bytes(table.long())
+    kmer = torch.zeros_like(start)
+    for t in range(8):
+        kmer = kmer * 4 + code[start + t]
+    keys = torch.unique(torch.repeat_interleave(used, n_pos) * 65536 + kmer)
+    L = reads.shape[1]
+    n_tests = 2 * max(L - 7, 0)
+    tests, hit = 0, torch.zeros(n, dtype=torch.bool, device=reads.device)
+    for a in range(0, n, 4096):
+        rows = torch.arange(a, min(a + 4096, n), device=reads.device)
+        read = row_read[rows].long()
+        codes = read_codes(torch.stack([reads[2 * read],
+                                        reads[2 * read + 1]], 1))
+        kmers = realign._packed_kmers(codes.flatten(0, 1), 8).reshape(
+            len(rows), -1).long()
+        query = row_window[rows, None] * 65536 + kmers
+        at = torch.searchsorted(keys, query).clamp(max=max(len(keys) - 1, 0))
+        found = (keys[at] == query) & (kmers >= 0) if len(keys) else \
+            torch.zeros_like(kmers, dtype=torch.bool)
+        any_hit = found.any(dim=1)
+        tests += int(torch.where(any_hit, found.int().argmax(dim=1) + 1,
+                                 n_tests).sum())
+        hit[rows] = any_hit
+    return {"positions": int(n_pos.sum()), "tests": tests, "hit": hit,
+            "windows": len(used)}
+
+
+def old_screen_rows(resident, window_chunk: int = 8192):
+    """The rows the sorted screen took before the windows stayed on the card
+    (each window in chunks of window_chunk bytes at a stride of
+    window_chunk - 7, a forward and a reverse complement row each, as the
+    JAX package's screen_pairs builds them): (pair, chunk start) a chunk,
+    one of each pair's chunks per row pair."""
+    import numpy as np
+
+    stride = window_chunk - 7
+    wl = resident.win_len[resident.pair_window]
+    chunks = 1 + np.maximum(0, -(-(wl - window_chunk) // stride))
+    pair = np.repeat(np.arange(len(wl)), chunks)
+    c = np.arange(len(pair)) - np.repeat(np.cumsum(chunks) - chunks, chunks)
+    return pair, c * stride
+
+
+def sorted_screen_ms(resident, verdict, window_chunk: int = 8192,
+                     batch: int = 4096) -> float:
+    """The library call beside K5: the sorted screen (realign.shared_kmer_mask,
+    torch.sort and torch.searchsorted) on the rows it took before the
+    windows stayed on the card (old_screen_rows), built on the card from
+    the resident tables, batch rows at a time; the sum of each batch's
+    median ms. Its verdicts, OR-ed over each pair's rows, must equal K5's
+    (verdict)."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch.ops import realign
+    from arriba_tpu_torch.ops.encode import PAD_CODE
+
+    device = resident.table.device
+    pair, start = old_screen_rows(resident, window_chunk)
+    offsets = torch.from_numpy(
+        resident.win_offset[resident.pair_window[pair]] + start).to(device)
+    lengths = torch.from_numpy(np.minimum(
+        resident.win_len[resident.pair_window[pair]] - start,
+        window_chunk)).to(device)
+    reads = torch.from_numpy(resident.pair_read[pair]).to(device)
+    lanes = torch.arange(window_chunk, device=device)
+    shared = torch.zeros(len(resident.pair_read), dtype=torch.int32,
+                         device=device)
+    pair_d = torch.from_numpy(pair).to(device)
+    total = 0.0
+    for a in range(0, len(pair), batch // 2):
+        b = slice(a, a + batch // 2)
+        raw = resident.table[(offsets[b, None] + lanes).clamp(
+            max=resident.table.numel() - 1)]
+        codes = torch.where(lanes < lengths[b, None],
+                            realign._kmer_codes_bytes(raw.long()),
+                            PAD_CODE).to(torch.uint8)
+        windows = codes.repeat_interleave(2, dim=0)
+        rows = torch.stack([2 * reads[b], 2 * reads[b] + 1], 1).flatten()
+        read_rows = read_codes(resident.accept_reads[rows])
+        hits = realign.shared_kmer_mask(read_rows, windows)
+        shared.scatter_reduce_(0, pair_d[b].repeat_interleave(2),
+                               hits.int(), "amax")
+        total += cuda_ms(lambda: realign.shared_kmer_mask(read_rows, windows),
+                         3, warm_up=False)
+    if not np.array_equal(shared.cpu().numpy() != 0, verdict):
+        raise SystemExit("K5 disagrees with the sorted screen on the chunked "
+                         "rows")
+    return total
+
+
+def check_kmer_bitmap_screen() -> dict:
+    """K5 through realign.kmer_bitmap_screen against its plain version on
+    the card, on each resident case in both layouts (resident_layouts),
+    with the verdicts a case must give: no screen read of "tail" (its even
+    pairs) shares an 8-mer, and every read of "short" that holds a window
+    of 8 bytes or more does. On "main" (packed) the launch's median ms, its
+    bound from the work these inputs need (kb_work, its verdicts checked
+    too), the plain version's ms and the sorted screen's on the rows it
+    took before (sorted_screen_ms: library_ms); on "shared_10000" the
+    launch against the same rows as one task, one block setting the
+    window's bitmap once. Returns its record."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    record = {"name": "kmer_bitmap_screen", "route": "cuda",
+              "source": "arriba_tpu_torch/kernels/csrc/kmer_bitmap_screen.cu",
+              "replaces": "arriba_tpu/ops/realign.py:61", "max_abs_err": 0,
+              "cases": {}}
+    for name in RESIDENT_CASES:
+        case = resident_case(name)
+        for layout, res in resident_layouts(case, "cuda").items():
+            pairs = np.arange(len(res.pair_read))
+            order, args = realign.screen_inputs(res, pairs)
+            got = realign.kmer_bitmap_screen(*args)
+            torch.cuda.synchronize()
+            want = realign.kmer_bitmap_screen_plain(*args)
+            err = int((got.int() - want.int()).abs().max())
+            if err != 0:
+                raise SystemExit(f"K5 disagrees with its plain version "
+                                 f"({name}, {layout})")
+            verdict = np.zeros(len(pairs), bool)
+            verdict[order] = want.cpu().numpy()
+            if name == "tail" and verdict[0::2].any():
+                raise SystemExit(f"a tail read shares an 8-mer past its "
+                                 f"window ({layout})")
+            if name == "short":
+                spans = case[1]
+                holds = [len(read) >= 8 and span[1] >= 8
+                         and read[3:3 + span[1]] == case[0][
+                             span[0]:span[0] + span[1]].tobytes().decode()
+                         for read, span in zip(case[2], spans)]
+                if not verdict[np.array(holds)].all():
+                    raise SystemExit("a read that holds its window does not "
+                                     "share an 8-mer with it")
+            summary = {"pairs": len(pairs), "windows": len(res.win_len),
+                       "tasks": int(args[5].shape[0]),
+                       "sharing": int(verdict.sum()), "max_abs_err": err}
+            if layout == "packed" and name in ("main", "shared_10000"):
+                out = torch.zeros(len(pairs), dtype=torch.uint8,
+                                  device="cuda")
+                summary["ms"] = cuda_ms(
+                    lambda: kernels.launch_kmer_bitmap_screen(*args, out), 20)
+                # the same rows in tasks of a quarter of KB_TASK_ROWS
+                _, quarter = realign.screen_tasks(
+                    res.pair_window[pairs], realign.KB_TASK_ROWS // 4)
+                quarter_args = args[:5] + (torch.from_numpy(quarter).to(
+                    "cuda"),)
+                if not torch.equal(realign.kmer_bitmap_screen(*quarter_args),
+                                   want):
+                    raise SystemExit("K5 in smaller tasks disagrees")
+                summary["quarter_tasks_ms"] = cuda_ms(
+                    lambda: kernels.launch_kmer_bitmap_screen(*quarter_args,
+                                                              out), 20)
+            if layout == "packed" and name == "shared_10000":
+                one = torch.tensor([[0, 0, len(pairs)]], dtype=torch.int32,
+                                   device="cuda")
+                one_args = args[:5] + (one,)
+                if not torch.equal(realign.kmer_bitmap_screen(*one_args),
+                                   want):
+                    raise SystemExit("K5 as one task disagrees")
+                summary["one_task_ms"] = cuda_ms(
+                    lambda: kernels.launch_kmer_bitmap_screen(*one_args, out),
+                    20)
+            if layout == "packed" and name == "main":
+                if not verdict[np.arange(len(pairs)) % 8 <= 2].all():
+                    raise SystemExit("a read copied from its window does not "
+                                     "share an 8-mer with it")
+                work = kb_work(*args)
+                if not torch.equal(work["hit"], want):
+                    raise SystemExit("K5's counted tests do not give the "
+                                     "plain version's verdicts")
+                used = np.unique(res.pair_read)
+                n_bytes = (int(res.win_len.sum()) + 2 * len(used)
+                           * res.accept_reads.shape[1] + 4 * len(pairs)
+                           + 12 * summary["tasks"] + 12 * len(res.win_len)
+                           + len(pairs))
+                bound_ms, bound_by = bound(
+                    n_bytes, work["positions"] * KB_OPS_PER_POSITION
+                    + work["tests"] * KB_OPS_PER_TEST)
+                summary.update(positions=work["positions"],
+                               tests=work["tests"], bound_ms=bound_ms,
+                               bound_by=bound_by)
+                record.update(
+                    ms=summary["ms"], bound_ms=bound_ms, bound_by=bound_by,
+                    plain_ms=cuda_ms(
+                        lambda: realign.kmer_bitmap_screen_plain(*args), 3),
+                    library_ms=sorted_screen_ms(res, verdict))
+            record["cases"][f"{name} {layout}"] = summary
+            log(f"K5 {name} ({layout}): {summary['sharing']}/{len(pairs)} "
+                f"pairs share an 8-mer, equal to the plain version"
+                + "".join(f"; {key} {summary[key]:.4f}"
+                          for key in ("ms", "quarter_tasks_ms",
+                                      "one_task_ms", "bound_ms")
+                          if key in summary))
+    return record
+
+
+def accept_indexed_main():
+    """K1's main-path rows (accept_inputs) as tables: the reads as a read
+    table, each window's win_len bytes one after another in a window table
+    with 3-15 random bytes after each (offsets not 16-byte aligned, bytes
+    past each window not 1), AW_TABLE_SLACK after the last. Returns (the
+    dense rows, (reads, table, offsets int64 [N, 2], params))."""
+    import numpy as np
+
+    reads, windows, params = dense = accept_inputs()
+    rng = np.random.default_rng(19)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    parts, starts, at = [], [], 0
+    for row in range(len(reads)):
+        window = windows[row, :params[row, 1]]
+        gap = alphabet[rng.integers(0, 4, 3 + row % 13)]
+        parts += [window, gap]
+        starts.append(at)
+        at += len(window) + len(gap)
+    table = np.concatenate(parts + [np.ones(16, np.uint8)])
+    offsets = np.stack([np.arange(len(reads)) * reads.shape[1],
+                        np.array(starts)], 1).astype(np.int64)
+    return dense, (reads, table, offsets, params)
+
+
+def check_accept_indexed() -> dict:
+    """K1's indexed entry through realign.accept_wavefront_indexed against
+    its plain version on the card: on accept_indexed_main (and against the
+    dense entry's verdicts on the same rows), timed as check_accept times
+    K1, its bound from the same work (accept_work on the dense rows); then
+    on the first RESIDENT_K1_PAIRS pairs of each resident case but "main"
+    in both layouts, each layout against the plain version of the packed
+    one, with the verdict "tail" must give: no row accepts. Returns its
+    record."""
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    cuda = torch.device("cuda")
+    dense, indexed = accept_indexed_main()
+    r, t, o, p = (torch.from_numpy(x).to(cuda) for x in indexed)
+    W = dense[1].shape[1]
+    got = realign.accept_wavefront_indexed(r, t, o, p, W)
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: realign.accept_wavefront_indexed_plain(
+        r, t, o, p, W), 1, warm_up=False)
+    want = realign.accept_wavefront_indexed_plain(r, t, o, p, W)
+    rd, wd, pd = (torch.from_numpy(x).to(cuda) for x in dense)
+    if not (torch.equal(got, want)
+            and torch.equal(got, realign.accept_wavefront(rd, wd, pd))):
+        raise SystemExit("K1's indexed entry disagrees with its plain version "
+                         "or the dense entry (main)")
+    out = torch.zeros(len(p), dtype=torch.int32, device=cuda)
+    ms = cuda_ms(lambda: kernels.launch_accept_wavefront_indexed(
+        r, t, o, p, out, W), 20, setup=out.zero_)
+    work = accept_work(rd, wd, pd, want)
+    n_bytes = sum(x.nbytes for x in indexed) + 4 * len(p)
+    bound_ms, bound_by = bound(n_bytes, work["positions"] * AW_OPS_PER_POSITION
+                               + work["cells"] * AW_OPS_PER_CELL)
+    cases = {"main": {"rows": len(p), "accepting": int(want.sum()),
+                      "max_abs_err": 0, "ms": ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "plain_ms": plain_ms}}
+    log(f"K1 indexed main: {int(want.sum())}/{len(p)} rows accept, equal to "
+        f"the plain version and the dense entry; {ms:.4f} ms a launch, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    for name in RESIDENT_CASES[1:]:
+        case = resident_case(name)
+        n = min(len(case[2]), RESIDENT_K1_PAIRS)
+        pairs = np.arange(n)
+        min_scores = np.asarray(case[3], np.int64)[:n]
+        want = None
+        for layout, res in resident_layouts(case, cuda).items():
+            row_pair, offsets, params = realign.resident_accept_rows(
+                res, pairs, min_scores)
+            o, p = (torch.from_numpy(x).to(cuda) for x in (offsets, params))
+            got = realign.accept_wavefront_indexed(res.accept_reads, res.table,
+                                                   o, p, 8192)
+            torch.cuda.synchronize()
+            if want is None:
+                want = realign.accept_wavefront_indexed_plain(
+                    res.accept_reads, res.table, o, p, 8192)
+            if not torch.equal(got, want):
+                raise SystemExit(f"K1's indexed entry disagrees with its "
+                                 f"plain version ({name}, {layout})")
+            accepted = np.zeros(n, bool)
+            np.logical_or.at(accepted, row_pair, want.cpu().numpy())
+            if name == "tail" and accepted.any():
+                raise SystemExit(f"a tail row accepts past its window "
+                                 f"({layout})")
+            cases[f"{name} {layout}"] = {"pairs": n, "rows": len(p),
+                                         "accepting": int(want.sum()),
+                                         "max_abs_err": 0}
+            log(f"K1 indexed {name} ({layout}): {int(want.sum())}/{len(p)} "
+                f"rows accept, equal to the plain version")
+    return {"name": "accept_wavefront_indexed", "route": "cuda",
+            "source": "arriba_tpu_torch/kernels/csrc/accept_wavefront.cu",
+            "replaces": "arriba_tpu/ops/realign.py:444", "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "cases": cases}
+
+
+# K1's indexed entry on the main path's launches: the rows its plain
+# version takes, strided through the launches, and the rows it takes at a
+# time
+MAIN_K1_SAMPLE = 32_768
+MAIN_K1_PLAIN_BATCH = 16_384
+# The main path's verdicts are one-sided (run A: every pair shares an
+# 8-mer with its 20-80 kb window, and no K1 row accepts), so each launch is
+# held once more with them broken up: K5 with every window cut to its first
+# MAIN_KB_WINDOW_CUT bytes, K1 with min_score lowered to 9 + row % 24
+MAIN_KB_WINDOW_CUT = 128
+
+
+def check_main_launches(kept: dict, records: list) -> None:
+    """Each launch of K5 and of K1's indexed entry that the main path made
+    (kept by kept_launches), made again on the same tensors through its
+    wrapper and held against its plain version: K5 on every row of each
+    launch, K1's indexed entry on a stride of every launch's rows (at most
+    MAIN_K1_SAMPLE rows in all: its plain version walks every row's 8,192
+    window bytes), with the launch's median ms; then each again with its
+    verdicts broken up (MAIN_KB_WINDOW_CUT, K1's lowered min_score), where
+    both verdicts must occur. Adds a "main path" case to each kernel's
+    record."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ops import realign
+
+    by_name = {record["name"]: record for record in records}
+    for name in ("kmer_bitmap_screen", "accept_wavefront_indexed"):
+        if not kept.get(name):
+            raise SystemExit(f"the main path made no launch of {name}")
+    case = {"launches": [], "max_abs_err": 0}
+    for args in kept["kmer_bitmap_screen"]:
+        cut = args[:3] + (args[3].clamp(max=MAIN_KB_WINDOW_CUT),) + args[4:]
+        sharing = []
+        for launch in (args, cut):
+            got = realign.kmer_bitmap_screen(*launch)
+            torch.cuda.synchronize()
+            want = realign.kmer_bitmap_screen_plain(*launch)
+            if not torch.equal(got, want):
+                raise SystemExit("K5 disagrees with its plain version on a "
+                                 "main path launch")
+            sharing.append(int(want.sum()))
+        rows = int(args[4].shape[0])
+        if not 0 < sharing[1] < rows:
+            raise SystemExit("K5's main path launch with its windows cut "
+                             "gave one verdict only")
+        out = torch.zeros(rows, dtype=torch.uint8, device="cuda")
+        ms = cuda_ms(lambda: kernels.launch_kmer_bitmap_screen(*args, out),
+                     5)
+        case["launches"].append({"rows": rows,
+                                 "tasks": int(args[5].shape[0]),
+                                 "windows": int(args[2].shape[0]),
+                                 "sharing": sharing[0],
+                                 "sharing_windows_cut": sharing[1],
+                                 "ms": ms})
+        log(f"K5 main path launch: {sharing[0]}/{rows} rows share an 8-mer "
+            f"({sharing[1]} with the windows cut to "
+            f"{MAIN_KB_WINDOW_CUT} bytes), equal to the plain version on "
+            f"every row; {ms:.4f} ms")
+    by_name["kmer_bitmap_screen"]["cases"]["main path"] = case
+    launches = kept["accept_wavefront_indexed"]
+    total = sum(args[2].shape[0] for args in launches)
+    stride = max(1, -(-total // MAIN_K1_SAMPLE))
+    case = {"launches": [], "max_abs_err": 0, "stride": stride}
+    for args in launches:
+        reads, table, offsets, params, W = args
+        n = offsets.shape[0]
+        lowered = params.clone()
+        lowered[:, 2] = torch.minimum(params[:, 2], 9 + torch.arange(
+            n, device="cuda", dtype=torch.int32) % 24)
+        rows = torch.arange(0, n, stride, device="cuda")
+        accepting = []
+        for p in (params, lowered):
+            got = realign.accept_wavefront_indexed(reads, table, offsets, p,
+                                                   W)
+            torch.cuda.synchronize()
+            want = realign.accept_wavefront_indexed_plain(
+                reads, table, offsets[rows], p[rows], W,
+                batch_rows=MAIN_K1_PLAIN_BATCH)
+            if not torch.equal(got[rows], want):
+                raise SystemExit("K1's indexed entry disagrees with its "
+                                 "plain version on a main path launch")
+            accepting.append((int(got.sum()), int(want.sum())))
+        if not 0 < accepting[1][1] < len(rows):
+            raise SystemExit("K1's main path launch with min_score lowered "
+                             "gave one verdict only")
+        out = torch.zeros(n, dtype=torch.int32, device="cuda")
+        ms = cuda_ms(lambda: kernels.launch_accept_wavefront_indexed(
+            reads, table, offsets, params, out, W), 3, setup=out.zero_)
+        case["launches"].append({
+            "rows": int(n), "held": len(rows), "accepting": accepting[0][0],
+            "held_accepting": accepting[0][1],
+            "accepting_lowered": accepting[1][0],
+            "held_accepting_lowered": accepting[1][1], "ms": ms})
+        log(f"K1 indexed main path launch: {accepting[0][0]}/{n} rows "
+            f"accept ({accepting[1][0]} at the lowered min_score); every "
+            f"{stride}th row ({len(rows)}, {accepting[0][1]} / "
+            f"{accepting[1][1]} accepting) equal to the plain version; "
+            f"{ms:.4f} ms")
+    by_name["accept_wavefront_indexed"]["cases"]["main path"] = case
+
+
 # K2's long-row kernel's phase-2 batches: 8,192 reads of 4,000 codes, past
 # the packed counters' 3,072 ("long"), and 2,048 reads of LE_LONG_LANES x
 # 3,069 + 100 codes (98,308 at 32 lanes), which take more tiles than a
@@ -1601,6 +2297,10 @@ def check_kernels() -> list:
 
     # K1's rows that walk every diagonal, and 70,000 rows a launch
     records += check_accept_variants()
+
+    # K5 and K1's indexed entry, on resident tables
+    records.append(check_kmer_bitmap_screen())
+    records.append(check_accept_indexed())
     return records
 
 
@@ -1641,9 +2341,13 @@ def run_cli(sample: pathlib.Path, label: str, env: dict, threads: int):
 
 
 # the offloaded ops whose seconds and calls each run reports: host wall time
-# around the call, device work included (each ends in a synchronize)
-TIMED_OPS = (("realign", "screen_pairs"), ("realign", "shared_kmer_mask"),
-             ("realign", "accept_pairs"), ("realign", "accept_wavefront"),
+# around the call, device work included (each ends in a synchronize); the
+# sorted screen (shared_kmer_mask) so that a run that calls it shows
+TIMED_OPS = (("realign", "resident_pairs"), ("realign", "screen_resident"),
+             ("realign", "kmer_bitmap_screen"),
+             ("realign", "accept_resident"),
+             ("realign", "accept_wavefront_indexed"),
+             ("realign", "shared_kmer_mask"),
              ("readfilters", "low_entropy_batch_chunked"))
 
 
@@ -1711,23 +2415,86 @@ def captured_states(states: list):
         pipeline.run = inner
 
 
+@contextlib.contextmanager
+def resident_bytes(totals: dict):
+    """Sum into totals what each realign.ResidentPairs made meanwhile
+    copied to the device ("windows", "reads", "rows"), with the distinct
+    windows' own bytes ("window_bytes") and the pairs."""
+    from arriba_tpu_torch.ops import realign
+
+    made = []
+    inner = realign.resident_pairs
+
+    def wrapped(*args, **kwargs):
+        made.append(inner(*args, **kwargs))
+        return made[-1]
+
+    realign.resident_pairs = wrapped
+    try:
+        yield totals
+    finally:
+        realign.resident_pairs = inner
+        for resident in made:
+            for key, value in dict(
+                    resident.uploaded,
+                    window_bytes=int(resident.win_len.sum()),
+                    pairs=len(resident.pair_read)).items():
+                totals[key] = totals.get(key, 0) + value
+
+
+@contextlib.contextmanager
+def kept_launches(kept: dict):
+    """Keep in kept, by kernel, the arguments of each launch of K5 and of
+    K1's indexed entry that realign.screen_launches and
+    realign.accept_launches give meanwhile (their tensors stay on the
+    card), so that check_main_launches makes those launches again."""
+    from arriba_tpu_torch.ops import realign
+
+    inner = {"kmer_bitmap_screen": ("screen_launches",
+                                    realign.screen_launches),
+             "accept_wavefront_indexed": ("accept_launches",
+                                          realign.accept_launches)}
+
+    def keeping(name, launches):
+        def wrapped(*args, **kwargs):
+            for rows, launch in launches(*args, **kwargs):
+                kept.setdefault(name, []).append(launch)
+                yield rows, launch
+        return wrapped
+
+    for name, (attribute, launches) in inner.items():
+        setattr(realign, attribute, keeping(name, launches))
+    try:
+        yield kept
+    finally:
+        for attribute, launches in inner.values():
+            setattr(realign, attribute, launches)
+
+
 def main_path(sample: pathlib.Path, threads: int, runs,
-              states=None) -> dict:
+              states=None, kept=None) -> dict:
     """Every run of runs through the CLI; outputs and stage counters must
     equal the first run's. Returns {label: (seconds, chimeric reads, kernel
     launches, {op: (seconds, calls)})}; the launch counts are zeroed just
     before each run and read just after it. The first run's PipelineState
-    is appended to states when given."""
+    is appended to states, and its launches of K5 and K1's indexed entry
+    kept in kept (kept_launches), when given. Each run also logs the bytes
+    its resident tables copied to the card (resident_bytes)."""
     from arriba_tpu_torch import kernels
 
     results = {}
     reference = None
     for label, env in runs:
         ops: dict = {}
+        copied: dict = {}
         kernels.reset_launch_counts()
-        capture = (captured_states(states) if states is not None
-                   and reference is None else contextlib.nullcontext())
-        with timed_ops(ops), capture:
+        with contextlib.ExitStack() as stack:
+            for context in (timed_ops(ops), resident_bytes(copied)):
+                stack.enter_context(context)
+            if reference is None and states is not None:
+                stack.enter_context(captured_states(states))
+            if reference is None and kept is not None:
+                stack.enter_context(kept_launches(kept))
             seconds, fusions, discarded, text = run_cli(sample, label, env,
                                                         threads)
         launches = dict(kernels.launch_counts)
@@ -1750,6 +2517,8 @@ def main_path(sample: pathlib.Path, threads: int, runs,
             f"launches {launches}")
         for name, (op_seconds, calls) in sorted(ops.items()):
             log(f"  {name}: {op_seconds:.3f} s in {calls} calls")
+        if copied:
+            log(f"  copied to the card: {copied}")
     n_fusions = reference[1].count(b"\n") - 1
     log(f"main path: every run's outputs and stage counters byte-equal "
         f"({n_fusions} fusions)")
@@ -2461,6 +3230,59 @@ def compare(kernel: str, sources: list) -> None:
     print(json.dumps({"against": {"kernel": kernel, "cases": result}}))
 
 
+# run A of one checkout, in its own process from its root (--run-a)
+RUN_A = r"""
+import json, pathlib, sys
+sys.path.insert(0, ".")
+import chip_smoke
+from arriba_tpu_torch.kernels import build
+build.build()
+result = chip_smoke.main_path(pathlib.Path(sys.argv[1]), int(sys.argv[2]),
+                              chip_smoke.runs(1)[:1])
+seconds, chimeric, launches, ops = result["A"]
+print("RUN_A " + json.dumps({"seconds": seconds, "chimeric": chimeric,
+                             "launches": launches, "ops": ops}))
+"""
+
+
+def run_a_against(checkouts: list) -> None:
+    """Run A (the main path) of each checkout directory in turn, on this
+    checkout's genome-scale sample, each in its own process from the
+    checkout's root with its own package and kernels (built before the
+    run): its wall seconds, op seconds and calls, kernel launches and, where
+    the checkout counts them, the bytes its resident tables copied. Every
+    run's output files must be byte-equal. Give the parent and this
+    checkout as parent, this, this, parent to see the spread."""
+    import bench_samples
+
+    sample = bench_samples.build_tier2(REPO / "build" / "chip_smoke" / "tier2",
+                                       quiet=True)
+    threads = min(8, os.cpu_count() or 1)
+    outputs, runs_a = None, []
+    for checkout in checkouts:
+        env = {key: value for key, value in os.environ.items()
+               if key != "PYTHONPATH"}
+        proc = subprocess.run(
+            [sys.executable, "-c", RUN_A, str(sample), str(threads)],
+            cwd=checkout, env=env, capture_output=True, text=True)
+        sys.stderr.write(proc.stderr[-3000:])
+        if proc.returncode != 0:
+            raise SystemExit(f"run A of {checkout} exited {proc.returncode}:"
+                             f"\n{proc.stdout[-3000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith(("run A", "  ")):
+                log(f"{checkout}: {line}")
+        result = json.loads(proc.stdout.split("RUN_A ")[1].splitlines()[0])
+        files = tuple(sample.joinpath(f"fusions.A{suffix}.tsv").read_bytes()
+                      for suffix in ("", ".discarded"))
+        if outputs is not None and files != outputs:
+            raise SystemExit(f"run A of {checkout} differs in its outputs")
+        outputs = files
+        runs_a.append({"checkout": checkout, **result})
+    log("run A: every checkout's outputs byte-equal")
+    print(json.dumps({"run_a": runs_a}))
+
+
 # A micro-loop per instruction: every thread runs 8 independent chains of
 # it, so the rate is the instruction's issue rate, not its latency
 RATE_SOURCE = r"""
@@ -2587,6 +3409,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--k4-occupancy"]:
         mxu_occupancy()
         return 0
+    if sys.argv[1:2] == ["--run-a"]:
+        run_a_against(sys.argv[2:])
+        return 0
     clock = subprocess.run(["nvidia-smi", "-i", "0",
                             "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader"],
@@ -2632,17 +3457,26 @@ def main() -> int:
     os.environ["ARRIBA_TPU_TORCH_STAGE_TIMES"] = "1"
     threads = min(8, os.cpu_count() or 1)
     states: list = []
+    kept: dict = {}
     t0 = time.perf_counter()
     n_cards = torch.cuda.device_count()
-    results = main_path(sample, threads, runs(n_cards)[:3], states)
+    results = main_path(sample, threads, runs(n_cards)[:3], states, kept)
     reduced = main_path(tenth, threads, reduced_runs(n_cards))
     for label in ("D", "E"):
         _, _, run_launches, ops = reduced[label]
-        if run_launches["accept_wavefront"] <= 0 or ops.get(
-                "shared_kmer_mask", (0, 0))[1] <= 0:
+        if (run_launches["accept_wavefront_indexed"] <= 0
+                or run_launches["kmer_bitmap_screen"] <= 0):
             raise SystemExit(f"run {label} never reached the 8-mer screen "
-                             f"and K1")
+                             f"(K5) and K1")
+    if "shared_kmer_mask" in results["A"][3]:
+        raise SystemExit("run A called the sorted screen")
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    # run A's own launches of K5 and K1's indexed entry, against their plain
+    # versions
+    t0 = time.perf_counter()
+    check_main_launches(kept, records)
+    kept.clear()
+    log(f"phase 3, run A's launches: {time.perf_counter() - t0:.1f} s")
     seconds_a, chimeric, launches, _ = results["A"]
     log(f"run A: {seconds_a:.3f} s wall, {chimeric / seconds_a:.1f} "
         f"chimeric reads/s")
@@ -2668,8 +3502,8 @@ def main() -> int:
     for k, count in mxu_any_k_path().items():
         launches[f"mxu_kmer_screen_any_k k={k}"] = count
     count = accept_path()
-    for name in ("every_diagonal", "rows_70000"):
-        launches[f"accept_wavefront {name}"] = count
+    for name in ("", " every_diagonal", " rows_70000"):
+        launches[f"accept_wavefront{name}"] = count
     launches["smith_waterman_wide"] = sww_path()
     launches["low_entropy_long"] = low_entropy_long_path()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
@@ -2686,7 +3520,8 @@ def main() -> int:
     tool_phase(sample, out_c)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
-    where = {"accept_wavefront": "run A", "low_entropy": "run A",
+    where = {"accept_wavefront_indexed": "run A",
+             "kmer_bitmap_screen": "run A", "low_entropy": "run A",
              "smith_waterman": "phase 5", "smith_waterman_wide16": "phase 5"}
     for record in records:
         record["launches"] = launches[record["name"]]

@@ -18,7 +18,9 @@ the 32 lanes of a warp over one row in int32, the read in tiles whose last
 row is carried to the next through a carry row; K4: its warpgroup's
 products emulated from its layouts, at k = 8 and, for its any-k kernel,
 at other k with biased digits, both through their copy rings stage by
-stage; K1's rows that walk every diagonal), and
+stage; K1's rows that walk every diagonal; K1's rows read by offset from
+a read table and a window table, and K5's blocks, a window's 8-mers in a
+bitmap and its rows' read 8-mers tested a warp's 32 at a time), and
 the results are held, exactly, against the port's plain PyTorch versions
 and the JAX package's ops.
 """
@@ -39,7 +41,9 @@ from arriba_tpu.ops import realign as jax_realign  # noqa: E402
 from arriba_tpu_torch.kernels.build import CSRC  # noqa: E402
 from arriba_tpu_torch.ops import readfilters, realign  # noqa: E402
 from chip_smoke import (ACCEPT_KINDS, accept_adversarial_inputs,  # noqa: E402
-                        mxu_inputs, mxu_work)
+                        mxu_inputs, mxu_work, resident_chunk_edges,
+                        resident_layouts, resident_main, resident_reads_n,
+                        resident_shared, resident_short, resident_tail)
 
 HARNESS = r"""
 #include <stdint.h>
@@ -47,6 +51,7 @@ HARNESS = r"""
 #include <cstring>
 #include <vector>
 #include "accept_wavefront.cuh"
+#include "kmer_bitmap_screen.cuh"
 #include "low_entropy.cuh"
 #include "mxu_kmer_screen.cuh"
 #include "smith_waterman.cuh"
@@ -676,88 +681,186 @@ void aw_rows(const uint8_t* reads, const uint8_t* windows,
     }
 }
 
-// K1's work per row as the kernel does it: per strip of diagonals, the
+// K1's work on one row as the kernel does it: per strip of diagonals, the
 // read's seeds in the bitmap, the window stretch coded once, the scan
 // claiming each named diagonal once, then the walks of the claimed ones;
 // a row whose min_score an unseeded walk can reach (aw_walks_all) walks,
 // and claims, every diagonal of the strip that aw_all_span names instead.
-// claims[row, delta + L - 1] (row stride L + W - 1) counts the claims of
-// each diagonal; every strip is scanned, also after an accept.
-void aw_rows_seeded(const uint8_t* reads, const uint8_t* windows,
-                    const int32_t* params, int32_t* out, int32_t* claims,
-                    int n, int L, int W) {
+// claims[delta + L - 1] counts the claims of each diagonal; every strip is
+// scanned, also after an accept. The stretch is staged as aw_stage_span
+// says: with table null a byte at a time, else in 16-byte loads aligned
+// to table's start (where the kernel's table starts on a 16-byte
+// boundary), each load checked to lie inside [table, table + table_bytes)
+// (-1: one did not).
+static int aw_row_seeded(const uint8_t* read, const uint8_t* window,
+                         const int32_t* p, int read_len, int win_len, int L,
+                         int W, const uint8_t* table, long long table_bytes,
+                         int32_t* claims) {
     int strip, n_strips;
     arriba::aw_strips(L, W, &strip, &n_strips);
     std::vector<uint32_t> bitmap(arriba::AW_BITMAP_WORDS);
     std::vector<uint32_t> claimed((strip + 31) / 32);
     std::vector<uint16_t> seeds(L > 0 ? L : 1);
-    std::vector<uint8_t> codes(strip + L + 32);
+    std::vector<uint8_t> codes(arriba::aw_layout(L, strip).bytes
+                               - arriba::aw_layout(L, strip).codes);
     std::vector<int> queue;
-    for (int row = 0; row < n; ++row) {
-        const int32_t* p = params + (long)row * 5;
-        const uint8_t* read = reads + (long)row * L;
-        const uint8_t* window = windows + (long)row * W;
-        const int read_len = std::min(std::max(p[0], 0), L);
-        const int win_len = std::min(p[1], W);
-        const int n_seeds = arriba::aw_seed_starts(read_len, p[2]);
-        int lo, hi;
-        arriba::aw_window_span(win_len, p[3], p[4], &lo, &hi);
-        int accept = 0;
-        for (int k = 0; k < n_strips; ++k) {
-            const int d_lo = -(L - 1) + k * strip;
-            const int d_hi = std::min(d_lo + strip, W) - 1;
-            if (arriba::aw_walks_all(read_len, p[2])) {
-                int first, last;
-                arriba::aw_all_span(d_lo, d_hi, read_len, win_len, &first,
-                                    &last);
-                for (int delta = first; delta <= last; ++delta) {
-                    claims[(long)row * (L + W - 1) + delta + L - 1] += 1;
-                    if (!accept) {
-                        accept = arriba::aw_diagonal(read, window, delta,
-                                                     read_len, win_len, p[2],
-                                                     p[3], p[4]);
-                    }
-                }
-                continue;
-            }
-            int jb, je;
-            arriba::aw_scan_span(d_lo, d_hi, n_seeds, lo, hi, &jb, &je);
-            if (jb > je) continue;
-            std::fill(bitmap.begin(), bitmap.end(), 0u);
-            std::fill(claimed.begin(), claimed.end(), 0u);
-            for (int t = jb; t < je + arriba::AW_SEED; ++t) {
-                codes[t - jb] = (uint8_t)arriba::aw_code_byte(window[t]);
-            }
-            for (int s = 0; s < n_seeds; ++s) {
-                const int kmer = arriba::aw_kmer_raw(read + s);
-                seeds[s] = (uint16_t)kmer;
-                bitmap[kmer >> 5] |= 1u << (kmer & 31);
-            }
-            queue.clear();
-            for (int j = jb; j <= je; ++j) {
-                const int kmer = arriba::aw_window_seed(&codes[j - jb],
-                                                        bitmap.data());
-                if (kmer < 0) continue;
-                int s_lo, s_hi;
-                arriba::aw_seed_span(j, d_lo, d_hi, n_seeds, &s_lo, &s_hi);
-                for (int s = s_lo; s <= s_hi; ++s) {
-                    if (seeds[s] != kmer) continue;
-                    const int bit = j - s - d_lo;
-                    const uint32_t mask = 1u << (bit & 31);
-                    if (claimed[bit >> 5] & mask) continue;
-                    claimed[bit >> 5] |= mask;
-                    queue.push_back(bit);
-                    claims[(long)row * (L + W - 1) + d_lo + bit + L - 1] += 1;
+    const int n_seeds = arriba::aw_seed_starts(read_len, p[2]);
+    int lo, hi;
+    arriba::aw_window_span(win_len, p[3], p[4], &lo, &hi);
+    int accept = 0;
+    for (int k = 0; k < n_strips; ++k) {
+        const int d_lo = -(L - 1) + k * strip;
+        const int d_hi = std::min(d_lo + strip, W) - 1;
+        if (arriba::aw_walks_all(read_len, p[2])) {
+            int first, last;
+            arriba::aw_all_span(d_lo, d_hi, read_len, win_len, &first,
+                                &last);
+            for (int delta = first; delta <= last; ++delta) {
+                claims[delta + L - 1] += 1;
+                if (!accept) {
+                    accept = arriba::aw_diagonal(read, window, delta,
+                                                 read_len, win_len, p[2],
+                                                 p[3], p[4]);
                 }
             }
-            for (int bit : queue) {
-                if (accept) break;
-                accept = arriba::aw_diagonal(read, window, d_lo + bit,
-                                             read_len, win_len, p[2], p[3],
-                                             p[4]);
+            continue;
+        }
+        int jb, je;
+        arriba::aw_scan_span(d_lo, d_hi, n_seeds, lo, hi, &jb, &je);
+        if (jb > je) continue;
+        std::fill(bitmap.begin(), bitmap.end(), 0u);
+        std::fill(claimed.begin(), claimed.end(), 0u);
+        int shift, n_bytes;
+        arriba::aw_stage_span(table ? (uint64_t)(window + jb - table) : 0,
+                              jb, je, table != nullptr, &shift, &n_bytes);
+        const uint8_t* base = window + jb - shift;
+        if (n_bytes > (int)codes.size()) return -1;
+        if (table && (base < table || base + n_bytes > table + table_bytes
+                      || (base - table) % 16 != 0)) {
+            return -1;
+        }
+        for (int t = 0; t < n_bytes; ++t) {
+            codes[t] = (uint8_t)arriba::aw_code_byte(base[t]);
+        }
+        for (int s = 0; s < n_seeds; ++s) {
+            const int kmer = arriba::aw_kmer_raw(read + s);
+            seeds[s] = (uint16_t)kmer;
+            bitmap[kmer >> 5] |= 1u << (kmer & 31);
+        }
+        queue.clear();
+        for (int j = jb; j <= je; ++j) {
+            const int kmer = arriba::aw_window_seed(&codes[j - jb + shift],
+                                                    bitmap.data());
+            if (kmer < 0) continue;
+            int s_lo, s_hi;
+            arriba::aw_seed_span(j, d_lo, d_hi, n_seeds, &s_lo, &s_hi);
+            for (int s = s_lo; s <= s_hi; ++s) {
+                if (seeds[s] != kmer) continue;
+                const int bit = j - s - d_lo;
+                const uint32_t mask = 1u << (bit & 31);
+                if (claimed[bit >> 5] & mask) continue;
+                claimed[bit >> 5] |= mask;
+                queue.push_back(bit);
+                claims[d_lo + bit + L - 1] += 1;
             }
         }
-        out[row] = accept;
+        for (int bit : queue) {
+            if (accept) break;
+            accept = arriba::aw_diagonal(read, window, d_lo + bit, read_len,
+                                         win_len, p[2], p[3], p[4]);
+        }
+    }
+    return accept;
+}
+
+// K1's dense rows (claims[row, delta + L - 1], row stride L + W - 1)
+void aw_rows_seeded(const uint8_t* reads, const uint8_t* windows,
+                    const int32_t* params, int32_t* out, int32_t* claims,
+                    int n, int L, int W) {
+    for (int row = 0; row < n; ++row) {
+        const int32_t* p = params + (long)row * 5;
+        out[row] = aw_row_seeded(reads + (long)row * L,
+                                 windows + (long)row * W, p,
+                                 std::min(std::max(p[0], 0), L),
+                                 std::min(p[1], W), L, W, nullptr, 0,
+                                 claims + (long)row * (L + W - 1));
+    }
+}
+
+// K1's indexed rows: each row's bytes by offset into a read table of
+// read_bytes and a window table of table_bytes (aw_row_bytes; a row
+// outside them accepts nothing), the stretch in 16-byte loads aligned to
+// the table's start; out -1 for a row whose loads leave the table
+void aw_rows_indexed(const uint8_t* reads, long long read_bytes,
+                     const uint8_t* table, long long table_bytes,
+                     const int64_t* offsets, const int32_t* params,
+                     int32_t* out, int n, int L, int W) {
+    std::vector<int32_t> claims(L + W - 1);
+    for (int row = 0; row < n; ++row) {
+        const int32_t* p = params + (long)row * 5;
+        const int read_len = std::min(std::max(p[0], 0), L);
+        const int win_len = std::min(p[1], W);
+        const uint8_t* read;
+        const uint8_t* window;
+        out[row] = 0;
+        if (!arriba::aw_row_bytes(reads, table, offsets, row, L, W, read_len,
+                                  win_len, read_bytes, table_bytes, &read,
+                                  &window)) {
+            continue;
+        }
+        out[row] = aw_row_seeded(read, window, p, read_len, win_len, L, W,
+                                 table, table_bytes, claims.data());
+    }
+}
+
+// K5 as the kernel does it, a task at a time: the bitmap cleared, the
+// window staged KB_TILE positions at a time as code bytes, each position's
+// 8-mer set; each row of the task tested 32 tests at a time (a warp's
+// lanes), stopping after the first group with a set bit. tested[row]
+// counts the tests made (each lane's test below the row's tests).
+void kb_rows(const uint8_t* reads, const uint8_t* table,
+             const int64_t* offsets, const int32_t* lengths,
+             const int32_t* row_read, const int32_t* tasks, uint8_t* out,
+             int32_t* tested, int n_rows, int n_tasks, int L,
+             int n_read_rows, int n_windows, long long table_bytes) {
+    std::vector<uint32_t> bitmap(arriba::KB_WORDS);
+    std::vector<uint8_t> codes(arriba::KB_TILE + arriba::KB_K - 1);
+    for (int b = 0; b < n_tasks; ++b) {
+        const int32_t* task = tasks + 3 * (long)b;
+        long long first;
+        int len;
+        arriba::kb_window(offsets, lengths, task[0], n_windows, table_bytes,
+                          &first, &len);
+        const uint8_t* window = table + first;
+        std::fill(bitmap.begin(), bitmap.end(), 0u);
+        const int n_pos = arriba::kb_window_positions(len);
+        for (int t0 = 0; t0 < n_pos; t0 += arriba::KB_TILE) {
+            const int n = std::min(arriba::KB_TILE, n_pos - t0);
+            for (int t = 0; t < n + arriba::KB_K - 1; ++t) {
+                codes[t] = (uint8_t)arriba::aw_kmer_code(window[t0 + t]);
+            }
+            for (int t = 0; t < n; ++t) {
+                const int kmer = arriba::aw_kmer_coded(&codes[t]);
+                bitmap[kmer >> 5] |= arriba::kb_mask(kmer);
+            }
+        }
+        const int n_tests = arriba::kb_row_tests(L);
+        const int end = std::min(task[2], n_rows);
+        for (int r = std::max(task[1], 0); r < end; ++r) {
+            const uint8_t* fwd =
+                arriba::kb_read_row(reads, row_read[r], n_read_rows, L);
+            bool hit = false;
+            for (int base = 0; fwd && base < n_tests && !hit; base += 32) {
+                for (int lane = 0; lane < 32; ++lane) {
+                    const int q = base + lane;
+                    if (q >= n_tests) break;
+                    tested[r] += 1;
+                    hit |= arriba::kb_test(bitmap.data(),
+                                           arriba::kb_row_kmer(fwd, q, L));
+                }
+            }
+            out[r] = hit ? 1 : 0;
+        }
     }
 }
 
@@ -1281,6 +1384,11 @@ def harness(tmp_path_factory):
     lib.aw_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.aw_rows_seeded.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.aw_rows_diagonals.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    lib.aw_rows_indexed.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.kb_rows.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_longlong]
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_rows_kernel.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_long_constants.argtypes = [ctypes.c_void_p]
@@ -1468,6 +1576,98 @@ def test_every_accepting_diagonal_is_a_seed_candidate(harness, case):
                                      torch.from_numpy(windows),
                                      torch.from_numpy(params)).numpy()
     np.testing.assert_array_equal(accepts.any(axis=1), plain)
+
+
+# the resident cases (chip_smoke.resident_case) at sizes the CPU takes
+_RESIDENT_CASES = {
+    "main": lambda: resident_main(contig_len=200_000, n_windows=6,
+                                  win_lo=1_000, win_hi=9_000, n_pairs=200),
+    "tail": lambda: resident_tail(lengths=(0, 7, 20, 100, 600, 1023, 1024,
+                                           1025, 2100)),
+    "short": resident_short,
+    "reads_n": resident_reads_n,
+    "chunk_edges": lambda: resident_chunk_edges(window_chunk=1024),
+    "shared": lambda: resident_shared(n_pairs=300),
+}
+
+
+@pytest.mark.parametrize("layout", ["packed", "contig"])
+@pytest.mark.parametrize("case", list(_RESIDENT_CASES))
+def test_kmer_bitmap_screen_emulation_matches_plain_and_jax(harness, case,
+                                                            layout):
+    """K5's blocks under g++ (kb_rows: the tasks of screen_inputs, a window
+    of the shared case split over two) against its plain version and the
+    JAX package's screen_pairs, on the tables resident_pairs packs and on
+    the contig as the window table (unaligned windows, the bytes past each
+    the contig's); a row without a hit makes every test, one with a hit
+    stops at the end of its group of 32."""
+    made = _RESIDENT_CASES[case]()
+    resident = resident_layouts(made, torch.device("cpu"))[layout]
+    n = len(resident.pair_read)
+    order, args = realign.screen_inputs(resident, np.arange(n))
+    reads, table, offsets, lengths, row_read, tasks = (x.numpy()
+                                                       for x in args)
+    out = np.zeros(n, np.uint8)
+    tested = np.zeros(n, np.int32)
+    harness.kb_rows(_ptr(reads), _ptr(table), _ptr(offsets), _ptr(lengths),
+                    _ptr(row_read), _ptr(tasks), _ptr(out), _ptr(tested), n,
+                    len(tasks), reads.shape[1], reads.shape[0], len(offsets),
+                    table.size)
+    plain = realign.kmer_bitmap_screen_plain(*args).numpy()
+    np.testing.assert_array_equal(out != 0, plain)
+    verdict = np.zeros(n, bool)
+    verdict[order] = plain
+    contig, spans, seqs, _ = made
+    np.testing.assert_array_equal(verdict, jax_realign.screen_pairs(
+        seqs, [contig[a:a + m] for a, m in spans]))
+    n_tests = 2 * (reads.shape[1] - 7)
+    assert (tested[~plain] == n_tests).all()
+    assert ((tested[plain] % 32 == 0) | (tested[plain] == n_tests)).all()
+    if case == "shared":
+        assert len(tasks) > 1 and 0 < plain.sum() < n
+
+
+@pytest.mark.parametrize("layout", ["packed", "contig"])
+@pytest.mark.parametrize("case", ["tail", "short", "reads_n", "chunk_edges"])
+def test_accept_indexed_emulation_matches_plain_and_jax(harness, case,
+                                                        layout):
+    """K1's indexed rows under g++ (aw_rows_indexed: each row's bytes by
+    offset, the staged stretch in 16-byte loads aligned to the table's
+    start, each checked to stay inside the table) against the indexed
+    plain version and the JAX package's XLA wavefront on the same rows made
+    dense (windows padded with 1 past win_len), at 1,024-byte chunks: on
+    the contig layout the bytes past a chunk's end are the window's or the
+    contig's next ones, and no "tail" row accepts."""
+    made = _RESIDENT_CASES[case]()
+    resident = resident_layouts(made, torch.device("cpu"))[layout]
+    n = min(len(resident.pair_read), 24)
+    W = 1024
+    row_pair, offsets, params = realign.resident_accept_rows(
+        resident, np.arange(n), np.asarray(made[3][:n]), W)
+    reads, table = resident.accept_reads.numpy(), resident.table.numpy()
+    out = np.zeros(len(row_pair), np.int32)
+    L = reads.shape[1]
+    harness.aw_rows_indexed(_ptr(reads), reads.size, _ptr(table), table.size,
+                            _ptr(offsets), _ptr(params), _ptr(out),
+                            len(row_pair), L, W)
+    assert (out >= 0).all()      # every load stayed inside the table
+    plain = realign.accept_wavefront_indexed_plain(
+        resident.accept_reads, resident.table, torch.from_numpy(offsets),
+        torch.from_numpy(params), W).numpy()
+    np.testing.assert_array_equal(out != 0, plain)
+    flat = reads.reshape(-1)
+    dense_reads = flat[offsets[:, :1] + np.arange(L)]
+    lanes = np.arange(W)
+    dense_windows = np.where(lanes < params[:, 1:2], table[np.minimum(
+        offsets[:, 1:2] + lanes, len(table) - 1)], 1).astype(np.uint8)
+    xla = np.asarray(jax_realign._accept_wavefront_kernel(
+        jnp.asarray(dense_reads), jnp.asarray(dense_windows),
+        *(jnp.asarray(params[:, c]) for c in range(5))))
+    np.testing.assert_array_equal(plain, xla)
+    if case == "tail":
+        assert not plain.any()
+    elif case != "short":
+        assert plain.any()
 
 
 def _low_entropy_rows(seed, n, L):

@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA kernels (K1-K4) against their plain
+"""The port on the card: the CUDA kernels (K1-K5) against their plain
 PyTorch versions, the other offloaded ops and whole CLI runs against the
 CPU and host paths, and the kernel wrappers' argument checks. The tests
 that need a CUDA device are marked ``cuda`` and skip without one;
@@ -649,6 +649,16 @@ _MK_ARGS = (torch.zeros(2, 20, dtype=torch.uint8),
             torch.zeros(2, 64, dtype=torch.uint8))
 _SWW_ARGS = (torch.zeros(2, 600, dtype=torch.uint8),
              torch.zeros(2, 16, dtype=torch.uint8))
+_KB_ARGS = (torch.zeros(4, 16, dtype=torch.uint8),
+            torch.zeros(64, dtype=torch.uint8),
+            torch.zeros(1, dtype=torch.int64),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(3, dtype=torch.int32),
+            torch.tensor([[0, 0, 3]], dtype=torch.int32))
+_AWI_ARGS = (torch.zeros(2, 64, dtype=torch.uint8),
+             torch.zeros(64, dtype=torch.uint8),
+             torch.zeros(3, 2, dtype=torch.int64),
+             torch.zeros(3, 5, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("name,args", [
@@ -673,6 +683,12 @@ _SWW_ARGS = (torch.zeros(2, 600, dtype=torch.uint8),
     ("mxu_kmer_screen", _MK_ARGS + (12,)),
     ("launch_mxu_kmer_screen",
      _MK_ARGS + (torch.zeros(2, dtype=torch.uint8), 3)),
+    ("kmer_bitmap_screen", _KB_ARGS),
+    ("launch_kmer_bitmap_screen",
+     _KB_ARGS + (torch.zeros(3, dtype=torch.uint8),)),
+    ("accept_wavefront_indexed", _AWI_ARGS + (8192,)),
+    ("launch_accept_wavefront_indexed",
+     _AWI_ARGS + (torch.zeros(3, dtype=torch.int32), 8192)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(name, args):
     """A wrapper launches its kernel or raises: CPU tensors never reach it
@@ -681,6 +697,91 @@ def test_kernel_wrappers_refuse_cpu_tensors(name, args):
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         getattr(kernels, name)(*args)
     assert kernels.launch_counts == before
+
+
+# the resident cases (chip_smoke.resident_case), small where the plain
+# versions would take long
+def _resident_cuda_cases():
+    from chip_smoke import (resident_chunk_edges, resident_main,
+                            resident_reads_n, resident_shared,
+                            resident_short, resident_tail)
+
+    return {"main": lambda: resident_main(contig_len=400_000, n_windows=16,
+                                          win_lo=2_000, win_hi=30_000,
+                                          n_pairs=2048),
+            "tail": resident_tail, "short": resident_short,
+            "reads_n": resident_reads_n,
+            "chunk_edges": resident_chunk_edges,
+            "shared": lambda: resident_shared(n_pairs=3000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "tail", "short", "reads_n",
+                                  "chunk_edges", "shared"])
+def test_kmer_bitmap_screen_kernel_matches_plain(cuda, case):
+    """K5 on the resident tables (packed by resident_pairs, and the contig
+    itself as the window table) against its plain version, one launch a
+    call."""
+    import numpy as np
+
+    from chip_smoke import resident_layouts
+
+    made = _resident_cuda_cases()[case]()
+    for layout, resident in resident_layouts(made, cuda).items():
+        order, args = realign.screen_inputs(
+            resident, np.arange(len(resident.pair_read)))
+        before = kernels.launch_counts["kmer_bitmap_screen"]
+        got = realign.kmer_bitmap_screen(*args)
+        assert kernels.launch_counts["kmer_bitmap_screen"] == before + 1
+        assert torch.equal(got, realign.kmer_bitmap_screen_plain(*args)), \
+            layout
+        if case == "tail":
+            verdict = np.zeros(len(order), bool)
+            verdict[order] = got.cpu().numpy()
+            assert not verdict[0::2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "short", "reads_n",
+                                  "chunk_edges", "shared"])
+def test_accept_wavefront_indexed_kernel_matches_plain(cuda, case):
+    """K1's indexed entry on the rows of a case's first 256 pairs, over
+    both layouts, against its plain version; no "tail" row accepts."""
+    import numpy as np
+
+    from chip_smoke import resident_layouts
+
+    made = _resident_cuda_cases()[case]()
+    n = min(len(made[2]), 256)
+    for layout, resident in resident_layouts(made, cuda).items():
+        _, offsets, params = realign.resident_accept_rows(
+            resident, np.arange(n), np.asarray(made[3][:n]))
+        o, p = (torch.from_numpy(x).to(cuda) for x in (offsets, params))
+        before = kernels.launch_counts["accept_wavefront_indexed"]
+        got = realign.accept_wavefront_indexed(resident.accept_reads,
+                                               resident.table, o, p, 8192)
+        assert kernels.launch_counts["accept_wavefront_indexed"] == before + 1
+        want = realign.accept_wavefront_indexed_plain(
+            resident.accept_reads, resident.table, o, p, 8192)
+        assert torch.equal(got, want), layout
+        if case == "tail":
+            assert not bool(want.any())
+
+
+@pytest.mark.cuda
+def test_screen_and_accept_pairs_on_the_card_match_the_cpu(cuda):
+    """screen_pairs and accept_pairs on the card (K5, K1's indexed entry,
+    the verdicts folded on the card) give the CPU's answers."""
+    from chip_smoke import resident_reads_n
+
+    contig, spans, reads, min_scores = resident_reads_n()
+    windows = [contig[a:a + n] for a, n in spans]
+    cpu = torch.device("cpu")
+    for function, extra in ((realign.screen_pairs, ()),
+                            (realign.accept_pairs, (min_scores,))):
+        got = function(reads, windows, *extra, device=cuda)
+        want = function(reads, windows, *extra, device=cpu)
+        assert (got == want).all() and want.any(), function.__name__
 
 
 @pytest.mark.cuda

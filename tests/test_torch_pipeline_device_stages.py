@@ -43,7 +43,8 @@ def test_pure_python_annotation_triage_and_pileup_match(tmp_path):
 def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
     """The port imports neither jax nor arriba_tpu: with both blocked by a
     meta-path finder, the mismapper scenario still matches the JAX package,
-    and the low-entropy scan, the 8-mer screen and the accept wavefront all
+    and the low-entropy scan, the 8-mer screen (its bitmap screen over the
+    resident windows) and the accept wavefront (its indexed rows) all
     ran."""
     import json
 
@@ -59,8 +60,8 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
     stderr = torch_run[4]
     calls = json.loads(stderr.split("DEVICE_CALLS ")[1].split("\n")[0])
     assert calls.get("_low_entropy_core_packed", 0) > 0, calls
-    assert calls.get("shared_kmer_mask", 0) > 0, calls
-    assert calls.get("accept_wavefront", 0) > 0, calls
+    assert calls.get("kmer_bitmap_screen", 0) > 0, calls
+    assert calls.get("accept_wavefront_indexed", 0) > 0, calls
     assert json.loads(stderr.split("BLOCKED_LOADED ")[1].split("\n")[0]) == []
 
 

@@ -281,19 +281,21 @@ def test_accept_pairs_refuses_a_negative_min_score(monkeypatch):
     CUDA device: it builds the rows as for any min_score, and K1 decides
     per row, from params, to walk every diagonal of such a row (an
     unseeded walk may accept there) and to take the seed lookup elsewhere.
-    Here the rows reach accept_wavefront before any launch, with that
-    route, and the answer is the JAX package's, down to -2^20 + 1."""
+    Here the rows reach accept_wavefront_indexed (K1's indexed entry, the
+    rows reading the resident read and window tables by offset) before any
+    launch, with that route, and the answer is the JAX package's, down to
+    -2^20 + 1."""
     from arriba_tpu_torch import kernels
 
     reads, windows, min_scores = _pairs_bounds()
     seen = []
-    inner = realign.accept_wavefront
+    inner = realign.accept_wavefront_indexed
 
-    def recording(r, w, params):
+    def recording(r, table, offsets, params, W):
         seen.append((r.shape[1], params.clone()))
-        return inner(r, w, params)
+        return inner(r, table, offsets, params, W)
 
-    monkeypatch.setattr(realign, "accept_wavefront", recording)
+    monkeypatch.setattr(realign, "accept_wavefront_indexed", recording)
     before = dict(kernels.launch_counts)
     for first in (-1, -(2 ** 20) + 1, -(2 ** 20)):
         seen.clear()

@@ -49,8 +49,8 @@ def count(module, name):
     setattr(module, name, wrapped)
 
 
-for module, name in ((realign, "shared_kmer_mask"),
-                     (realign, "accept_wavefront"),
+for module, name in ((realign, "kmer_bitmap_screen"),
+                     (realign, "accept_wavefront_indexed"),
                      (readfilters, "_low_entropy_core_packed")):
     count(module, name)
 try:
