@@ -8,7 +8,8 @@ and raises if the launch returned a CUDA error. It adds one to
 show that its main path went through the kernel; a kernel with a second
 variant counts it under its own name (``accept_wavefront_indexed``,
 ``low_entropy_long``, ``smith_waterman_wide16``, ``smith_waterman_wide``,
-``mxu_kmer_screen_any_k``). The value ranges of
+``mxu_kmer_screen_any_k``), and K5's two passes (kb_passes, each launch
+checked) count once a screen, as ``kmer_bitmap_screen``. The value ranges of
 the row lengths and offsets are checked on the host where the callers
 build them; the kernels clamp those lengths to their rows and skip a row
 whose offsets leave its tables, so no value can make them read outside
@@ -57,17 +58,24 @@ def _require(tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, *args) -> None:
-    """Launch the C entry point ``name`` (kernels.build) and count it."""
+def _call(name: str, *args) -> None:
+    """Launch the C entry point ``name`` (kernels.build) on the current
+    stream, a tensor argument as its data_ptr; raise on a CUDA error."""
     import torch
 
     from .build import load
 
     launch, error_string = load(name)
-    code = launch(*args, torch.cuda.current_stream().cuda_stream)
+    values = [x.data_ptr() if hasattr(x, "data_ptr") else x for x in args]
+    code = launch(*values, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"{error_string(code)} ({code})")
+
+
+def _launch(name: str, *args) -> None:
+    """Launch the C entry point ``name`` (_call) and count it."""
+    _call(name, *args)
     launch_counts[name] += 1
 
 
@@ -139,17 +147,18 @@ def accept_wavefront_indexed(reads, table, offsets, params, W: int):
     return out != 0
 
 
-def launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
-                              tasks, out) -> None:
-    """K5 (csrc/kmer_bitmap_screen.cu) into out, uint8 [N]: 1 where an
-    8-mer of the row's read, in either orientation, occurs in its window,
-    else 0. reads uint8 [2 R, L] holds raw rows (2 r forward, 2 r + 1
-    reverse complement; 0 past the read), table uint8 [T]
-    raw window bytes, offsets int64 [W] and lengths int32 [W] each window's
-    span of it, row_read int32 [N] each row's read id, the rows sorted by
-    window, and tasks int32 [K, 3] = (window, first row, end row) the rows
-    a block tests against one window's bitmap (ops/realign.screen_tasks).
-    No launch for N = 0 or K = 0."""
+# K5's default slice length (csrc/kmer_bitmap_screen.cuh KB_SLICE) and its
+# bitmap words a window
+KB_SLICE = 16384
+KB_WORDS = 2048
+
+
+def kb_passes(reads, table, offsets, lengths, row_read, tasks, out,
+              schedule) -> list:
+    """K5's two launches (csrc/kmer_bitmap_screen.cu) after the checks of
+    launch_kmer_bitmap_screen: [(C entry point, arguments)], the build
+    pass's and the test pass's, with the scratch bitmap, int32 [windows
+    used, KB_WORDS], allocated as zeros; none for N = 0 or K = 0."""
     import torch
 
     _require(reads, "reads", torch.uint8, 2)
@@ -160,19 +169,62 @@ def launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
     _require(tasks, "tasks", torch.int32, 2)
     _require(out, "out", torch.uint8, 1)
     n = row_read.shape[0]
+    L = reads.shape[1]
     if (lengths.shape[0] != offsets.shape[0] or tasks.shape[1] != 3
             or out.shape[0] != n):
         raise ValueError("lengths must match offsets, tasks be int32 "
                          "[K, 3] and out uint8 [N]")
+    if L % 16 or reads.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("K5 loads 16 bytes at a time: reads must be a "
+                         "multiple of 16 bytes wide and both tables start on "
+                         "a 16-byte boundary")
     if n == 0 or tasks.shape[0] == 0:
-        return
-    _launch("kmer_bitmap_screen", reads.data_ptr(), table.data_ptr(),
-            offsets.data_ptr(), lengths.data_ptr(), row_read.data_ptr(),
-            tasks.data_ptr(), out.data_ptr(), n, tasks.shape[0],
-            reads.shape[1], reads.shape[0], offsets.shape[0], table.numel())
+        return []
+    _require(schedule.rank_window, "rank_window", torch.int32, 1)
+    _require(schedule.task_rank, "task_rank", torch.int32, 1)
+    _require(schedule.slices, "slices", torch.int32, 2)
+    used = schedule.rank_window.shape[0]
+    n_slices = schedule.slices.shape[0]
+    if (schedule.task_rank.shape[0] != tasks.shape[0]
+            or schedule.slices.shape[1] != 2 or schedule.slice_len <= 0
+            or schedule.slice_len % 16):
+        raise ValueError("the schedule must rank every task and cut slices "
+                         "of a positive multiple of 16 positions")
+    bitmaps = torch.zeros((max(used, 1), KB_WORDS), dtype=torch.int32,
+                          device=tasks.device)
+    return [("kmer_bitmap_build",
+             (table, offsets, lengths, schedule.rank_window, schedule.slices,
+              bitmaps, n_slices, used, offsets.shape[0], table.numel(),
+              schedule.slice_len)),
+            ("kmer_bitmap_test",
+             (reads, row_read, tasks, schedule.task_rank, bitmaps, out, n,
+              tasks.shape[0], L, reads.shape[0], used))]
 
 
-def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks):
+def launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
+                              tasks, out, schedule) -> None:
+    """K5 (csrc/kmer_bitmap_screen.cu) into out, uint8 [N]: 1 where an
+    8-mer of the row's read, in either orientation, occurs in its window,
+    else 0. reads uint8 [2 R, L] holds raw rows (2 r forward, 2 r + 1
+    reverse complement; 0 past the read; L a multiple of 16), table uint8
+    [T] raw window bytes, offsets int64 [W] and lengths int32 [W] each
+    window's span of it, row_read int32 [N] each row's read id, the rows
+    sorted by window, and tasks int32 [K, 3] = (window, first row, end row)
+    the rows a block tests against one window's bitmap
+    (ops/realign.screen_tasks); schedule, realign.screen_schedule's for
+    these tasks, the slices of the windows that the build pass sets. Two
+    launches (kb_passes), each checked, counted once; none for N = 0 or K
+    = 0."""
+    passes = kb_passes(reads, table, offsets, lengths, row_read, tasks, out,
+                       schedule)
+    for name, args in passes:
+        _call(name, *args)
+    if passes:
+        launch_counts["kmer_bitmap_screen"] += 1
+
+
+def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks,
+                       schedule):
     """K5: bool [N] shared-8-mer verdicts in the rows' order (see
     launch_kmer_bitmap_screen); a row no task names stays False."""
     import torch
@@ -180,7 +232,7 @@ def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks):
     out = torch.zeros(row_read.shape[0], dtype=torch.uint8,
                       device=row_read.device)
     launch_kmer_bitmap_screen(reads, table, offsets, lengths, row_read,
-                              tasks, out)
+                              tasks, out, schedule)
     return out.view(torch.bool)
 
 

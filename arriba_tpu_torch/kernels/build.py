@@ -42,9 +42,13 @@ _SIGNATURES = {
                                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                                  + [ctypes.c_longlong] * 2
                                  + [ctypes.c_void_p]),
-    "kmer_bitmap_screen": ("arriba_kmer_bitmap_screen",
-                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong, ctypes.c_void_p]),
+    "kmer_bitmap_build": ("arriba_kmer_bitmap_build",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                          + [ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_void_p]),
+    "kmer_bitmap_test": ("arriba_kmer_bitmap_test",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p]),
     "low_entropy": ("arriba_low_entropy",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]),
@@ -68,6 +72,8 @@ _SIGNATURES = {
                               + [ctypes.c_void_p]),
 }
 _LIBRARIES = {"accept_wavefront_indexed": "accept_wavefront",
+              "kmer_bitmap_build": "kmer_bitmap_screen",
+              "kmer_bitmap_test": "kmer_bitmap_screen",
               "mxu_kmer_screen_any_k": "mxu_kmer_screen",
               "smith_waterman_wide16": "smith_waterman_wide",
               "low_entropy_long": "low_entropy"}

@@ -12,11 +12,11 @@ partner gene with a recursive 8-mer-seeded seed-and-extend aligner
    REJECT*: align() can only accept a read if at least one 8-mer of the
    read occurs in the padded gene window (the seed lookup at
    filter_mismappers.cpp:97-99). CUDA tensors run the hand-written kernel
-   K5 (kernels/csrc/kmer_bitmap_screen.cu: a window's 8-mers in a shared
-   bitmap, its pairs' read 8-mers tested against it), CPU tensors
-   `kmer_bitmap_screen_plain`. `shared_kmer_mask`, the per-row sorted
-   screen of the JAX package (a sort plus a batched searchsorted), stays
-   for the realign step below.
+   K5 (kernels/csrc/kmer_bitmap_screen.cu: each window's 8-mers set in a
+   bitmap once, over the slices `screen_schedule` cuts, then its pairs'
+   read 8-mers tested against it), CPU tensors `kmer_bitmap_screen_plain`.
+   `shared_kmer_mask`, the per-row sorted screen of the JAX package (a
+   sort plus a batched searchsorted), stays for the realign step below.
 2. `accept_pairs` / `accept_resident` -> `accept_wavefront_indexed` (rows
    that read the resident tables by offset; `accept_wavefront` takes dense
    rows), an *exact single-seed ACCEPT*:
@@ -52,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import KB_SLICE
 from ..seq import COMPLEMENT_LUT as _COMPLEMENT_LUT
 from .encode import PAD_CODE
 
@@ -324,8 +325,11 @@ def resident_pairs(read_seqs, window_views, device=None,
         {"windows": host.nbytes, "reads": accept.nbytes, "rows": 0})
 
 
-# K5's rows a block tests against one window's bitmap (screen_tasks)
-KB_TASK_ROWS = 256
+# K5's rows a block tests against one window's bitmap (screen_tasks): of
+# 32, 64, 128 and 256 the fastest on the main path's own launch and on the
+# main case on an H100 (32 wins where one window's rows are all a launch
+# has; PERF.md)
+KB_TASK_ROWS = 64
 
 
 def screen_tasks(row_window: np.ndarray, rows_per_task: int = KB_TASK_ROWS):
@@ -400,42 +404,95 @@ def kmer_bitmap_screen_plain(reads, table, offsets, lengths, row_read,
     return verdict
 
 
-def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks):
-    """bool [N]: K5 for CUDA tensors, the plain version for CPU tensors
-    (see kmer_bitmap_screen_plain)."""
+def kmer_bitmap_screen(reads, table, offsets, lengths, row_read, tasks,
+                       schedule=None):
+    """bool [N]: K5 for CUDA tensors (its build pass over the windows'
+    slices that schedule gives, then its test pass; without a schedule,
+    screen_schedule makes one from tasks and lengths, which waits for the
+    card), the plain version for CPU tensors (see kmer_bitmap_screen_plain),
+    which needs no schedule."""
     if reads.is_cuda:
         from .. import kernels
+        if schedule is None:
+            schedule = screen_schedule(tasks.cpu().numpy(),
+                                       lengths.cpu().numpy(),
+                                       device=tasks.device)
         return kernels.kmer_bitmap_screen(reads, table, offsets, lengths,
-                                          row_read, tasks)
+                                          row_read, tasks, schedule)
     return kmer_bitmap_screen_plain(reads, table, offsets, lengths,
                                     row_read, tasks)
 
 
-def screen_inputs(resident: ResidentPairs, pairs: np.ndarray):
+@dataclasses.dataclass
+class ScreenSchedule:
+    """Where K5's build pass sets each window's bitmap once (screen_schedule):
+    the windows its tasks name, ranked, each cut into slices."""
+    rank_window: torch.Tensor  # int32 [used]: the window id of each rank
+    task_rank: torch.Tensor    # int32 [tasks]: each task's window's rank
+    slices: torch.Tensor       # int32 [slices, 2]: (rank, first position)
+    slice_len: int             # positions a slice
+
+    def nbytes(self) -> int:
+        return sum(x.numel() * x.element_size()
+                   for x in (self.rank_window, self.task_rank, self.slices))
+
+
+def screen_schedule(tasks: np.ndarray, lengths: np.ndarray,
+                    slice_len: int = KB_SLICE,
+                    device=None) -> ScreenSchedule:
+    """K5's schedule for tasks int32 [K, 3] over windows of lengths, in
+    numpy: the distinct window ids the tasks name that lie in [0, len(
+    lengths)), in increasing order, ranked 0, 1, ... (task_rank -1 for a
+    task whose id lies outside), and each ranked window's positions [0,
+    lengths - 7) cut into slices of slice_len from 0 (none for a window too
+    short for an 8-mer); the tensors on device."""
+    window = np.asarray(tasks, np.int64).reshape(-1, 3)[:, 0]
+    valid = (window >= 0) & (window < len(lengths))
+    rank_window, rank = np.unique(window[valid], return_inverse=True)
+    task_rank = np.full(len(window), -1, np.int32)
+    task_rank[valid] = rank.reshape(-1)
+    n_pos = np.maximum(np.asarray(lengths, np.int64)[rank_window] - 7, 0)
+    count = -(-n_pos // slice_len)
+    slice_rank = np.repeat(np.arange(len(rank_window)), count)
+    first = slice_len * (np.arange(len(slice_rank))
+                         - np.repeat(np.cumsum(count) - count, count))
+    slices = np.stack([slice_rank, first], 1).astype(np.int32)
+    return ScreenSchedule(*(torch.from_numpy(x).to(_device(device)) for x in (
+        rank_window.astype(np.int32), task_rank, slices.reshape(-1, 2))),
+        slice_len)
+
+
+def screen_inputs(resident: ResidentPairs, pairs: np.ndarray,
+                  rows_per_task: int = KB_TASK_ROWS,
+                  slice_len: int = KB_SLICE):
     """K5's inputs for the pairs of resident named by index: (order, (reads,
-    table, offsets, lengths, row_read, tasks)), the rows being the pairs in
-    that order (sorted by window, screen_tasks) and the tensors on the
-    resident tables' device."""
+    table, offsets, lengths, row_read, tasks), schedule), the rows being the
+    pairs in that order (sorted by window, screen_tasks, rows_per_task a
+    task), the windows the tasks name cut into slices of slice_len positions
+    (screen_schedule) and the tensors on the resident tables' device."""
     device = resident.device
-    order, tasks = screen_tasks(resident.pair_window[pairs])
-    host = (resident.win_offset, resident.win_len.astype(np.int32),
+    order, tasks = screen_tasks(resident.pair_window[pairs], rows_per_task)
+    lengths = resident.win_len.astype(np.int32)
+    host = (resident.win_offset, lengths,
             resident.pair_read[pairs[order]].astype(np.int32), tasks)
-    resident.uploaded["rows"] += sum(x.nbytes for x in host)
+    schedule = screen_schedule(tasks, lengths, slice_len, device)
+    resident.uploaded["rows"] += (sum(x.nbytes for x in host)
+                                  + schedule.nbytes())
     offsets, lengths, row_read, tasks = (torch.from_numpy(x).to(device)
                                          for x in host)
     return order, (resident.accept_reads, resident.table, offsets, lengths,
-                   row_read, tasks)
+                   row_read, tasks), schedule
 
 
 def screen_launches(resident: ResidentPairs, batch_rows: int = 1 << 20):
     """K5's launches over every pair of resident, batch_rows pairs each,
     the pairs sorted by window: (the pairs in the launch's row order,
-    kmer_bitmap_screen's arguments) a launch."""
+    kmer_bitmap_screen's arguments, its schedule) a launch."""
     order = np.argsort(resident.pair_window, kind="stable")
     for a in range(0, len(order), batch_rows):
         pairs = order[a:a + batch_rows]
-        within, args = screen_inputs(resident, pairs)
-        yield pairs[within], args
+        within, args, schedule = screen_inputs(resident, pairs)
+        yield pairs[within], args, schedule
 
 
 def screen_resident(resident: ResidentPairs,
@@ -444,8 +501,9 @@ def screen_resident(resident: ResidentPairs,
     window in either orientation, K5 over the resident tables
     (kmer_bitmap_screen), batch_rows pairs a launch (screen_launches)."""
     result = np.zeros(len(resident.pair_read), bool)
-    for pairs, args in screen_launches(resident, batch_rows):
-        result[pairs] = kmer_bitmap_screen(*args).cpu().numpy()
+    for pairs, args, schedule in screen_launches(resident, batch_rows):
+        result[pairs] = kmer_bitmap_screen(
+            *args, schedule=schedule).cpu().numpy()
     return result
 
 

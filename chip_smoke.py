@@ -8,11 +8,13 @@
     python3 chip_smoke.py --run-a CHECKOUT [CHECKOUT ...]
 
 The second form only times one kernel (accept_wavefront, low_entropy,
-smith_waterman, smith_waterman_wide, mxu_kmer_screen at k = 8 or
-mxu_kmer_screen_any_k) built from other sources against this checkout's
-build (compare; K4's builds, at k = 8 or any k, also go through their
-stress step; K3w's builds run the width the router picks, an older build
-without the 16-bit entry point its 32-bit one);
+smith_waterman, smith_waterman_wide, mxu_kmer_screen at k = 8,
+mxu_kmer_screen_any_k or kmer_bitmap_screen) built from other sources
+against this checkout's build (compare; K4's builds, at k = 8 or any k,
+also go through their stress step; K3w's builds run the width the router
+picks, an older build without the 16-bit entry point its 32-bit one; K5's
+earlier builds run their one-pass entry point, this checkout its two
+passes);
 a SOURCE is a csrc directory, such as an earlier commit's unpacked with
 ``git archive``. ``--k1-against SOURCE ...`` is ``--against
 accept_wavefront SOURCE ...``. The third measures the issue rate of the
@@ -67,13 +69,18 @@ printed):
    150 bp reads against 128 gene windows of 20-80 kb), windows whose tail
    continues the read, windows of 0-17 bytes, reads with N, windows at the
    edges of K1's chunks, one window shared by 10,000 rows (also as one
-   task; the main and shared cases also in tasks of 64 rows); K1's
+   task), then the edges of K5's schedule (KB_EDGE_CASES: windows at a
+   slice's edges, a window no task names, tasks of one row, reads of 0-8
+   bytes); the main and shared cases timed in each of KB_VARIANTS (tasks
+   of 64 rows, and of 32 and 256; slices of 16,384 positions, and of
+   4,096), the pair of passes and each alone (kb_timed); K1's
    indexed entry on K1's main rows at unaligned offsets (and against the
    dense entry) and on the first 5,000 pairs of the other
    cases in both layouts (check_kmer_bitmap_screen,
    check_accept_indexed). K5's bound counts its work from its inputs
    (kb_work: each distinct window's positions once, each row's tests up to
-   its first set bit); its library_ms is the sorted screen
+   its first set bit, each read's bytes up to its rows' furthest test;
+   kb_bound); its library_ms is the sorted screen
    (realign.shared_kmer_mask, torch.sort and torch.searchsorted) on the
    chunked rows it took before (sorted_screen_ms), which must agree.
    Kernel time
@@ -111,7 +118,9 @@ printed):
    every row, K1 on a stride of MAIN_K1_SAMPLE rows through them, and once
    more with run A's one-sided verdicts broken up (K5's windows cut to
    MAIN_KB_WINDOW_CUT bytes, K1's min_score lowered), where both verdicts
-   must occur (check_main_launches).
+   must occur; each with its time and bound (K5's from kb_work, with the
+   sorted screen on its chunked rows as its library time; K1's from
+   accept_work on the held rows, scaled to the launch) (check_main_launches).
 4. The flagship step (arriba_tpu_torch.entry) on the card against the CPU.
 5. The data-parallel path at full size: entry.sharded_check on run A's
    pipeline state at 1 and 4 row shards on the card (the filter step over
@@ -1411,14 +1420,17 @@ RESIDENT_K1_PAIRS = 5000
 def resident_main(seed: int = 53, contig_len: int = 4_000_000,
                   n_windows: int = 128, win_lo: int = 20_000,
                   win_hi: int = 80_000, n_pairs: int = 32_768,
-                  read_len: int = 150):
+                  read_len: int = 150, n_runs: int = 0,
+                  run_len: int = 2000):
     """The screen's main-path shape: gene windows (gene plus twice the mate
     gap and read length, 20-80 kb) of one random contig with 0.5 % N,
     chosen by pairs with a 1 / rank skew, and 150 bp reads: by pair % 8
     copies of the window (0), their reverse complements (1), copies with
     40 substitutions (2), reads across the window's end (3, 4; the bytes
     past it continue the read), random reads (5, 6), and pair 7 the read
-    of pair 6 against another window. (contig, spans, reads, min_scores)"""
+    of pair 6 against another window; with n_runs runs of run_len N at
+    random places of the contig (none by default). (contig, spans, reads,
+    min_scores)"""
     import numpy as np
 
     from arriba_tpu_torch.seq import COMPLEMENT_LUT
@@ -1427,6 +1439,9 @@ def resident_main(seed: int = 53, contig_len: int = 4_000_000,
     alphabet = np.frombuffer(b"ACGTN", np.uint8)
     contig = alphabet[rng.choice(5, contig_len,
                                  p=[.24875, .24875, .24875, .24875, .005])]
+    for at in np.random.default_rng(seed + 1).integers(
+            0, contig_len - run_len, n_runs):
+        contig[at:at + run_len] = ord("N")
     lens = rng.integers(win_lo, win_hi, n_windows)
     starts = rng.integers(0, contig_len - win_hi - read_len, n_windows)
     weights = 1.0 / np.arange(1, n_windows + 1)
@@ -1578,6 +1593,106 @@ def resident_shared(n_pairs: int = 10_000, window_len: int = 600):
             [int(0.8 * len(s) + 0.5) for s in reads])
 
 
+def resident_slice_edge(window_len: int, plants, seed: int = 83):
+    """A window of window_len 'T' bytes with a G/C 8-mer planted at each
+    position of plants, and a read a plant ("NN", the 8-mer, "NN"), then a
+    read of another G/C 8-mer planted nowhere; no 8-mer picked is another's
+    reverse complement. N codes as A does and the window holds neither, so
+    a read shares exactly its own plant with the window, forward.
+    (contig, spans, reads, min_scores)"""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    at0 = 42  # in the contig layout, a slice of S positions ends 10 bytes
+    # past a 16-byte boundary: its last group needs the next one
+    contig = np.full(window_len + 2 * at0, ord("T"), np.uint8)
+    kmers, taken = [], set()
+    while len(kmers) < len(plants) + 1:
+        forward = "".join(rng.choice(list("GC"), 8))
+        back = forward[::-1].translate(str.maketrans("GC", "CG"))
+        if not {forward, back} & taken:
+            kmers.append(forward)
+            taken |= {forward, back}
+    for at, kmer in zip(plants, kmers):
+        contig[at0 + at:at0 + at + 8] = np.frombuffer(kmer.encode(),
+                                                      np.uint8)
+    reads = [f"NN{kmer}NN" for kmer in kmers]
+    return contig, [(at0, window_len)] * len(reads), reads, [10] * len(reads)
+
+
+def kb_slice_edge_cases() -> dict:
+    """{case: (window bytes, plant positions)} of K5's slice edges (S =
+    kernels.KB_SLICE): one slice whose last 8-mer ends at the window's last
+    byte, two slices the second of one position, two slices the second one
+    position short; with 8-mers across the first slice's edge (position
+    S - 1 reads 7 bytes past it), at the first and last positions the
+    window holds and at the second slice's only one."""
+    from arriba_tpu_torch.kernels import KB_SLICE as S
+
+    return {"slice_plus_7": (S + 7, (0, S - 9, S - 1)),
+            "slice_plus_8": (S + 8, (0, S - 8, S)),
+            "two_slices_plus_6": (2 * S + 6, (S - 1, S + 10, 2 * S - 2))}
+
+
+def resident_long_reads(lengths=(250, 300, 517, 700), seed: int = 97):
+    """Reads past 256 bytes, whose tests a warp stages in several pieces:
+    a 2,000-byte window of T, G and C, and for each length a read of N, the
+    same read with an 8-mer of the window 20 bytes before its end, with the
+    reverse complement of one 5 bytes after its start (the reverse
+    complement row holds it near its end), and with one at its very end.
+    N codes as no window byte does, so only the planted 8-mers are shared.
+    (contig, spans, reads, min_scores)"""
+    import numpy as np
+
+    from arriba_tpu_torch.seq import reverse_complement_str
+
+    rng = np.random.default_rng(seed)
+    contig = np.frombuffer(b"TGC", np.uint8)[rng.integers(0, 3, 3000)]
+    window = contig[500:2500].tobytes().decode()
+    reads = []
+    for n in lengths:
+        for at, kmer in ((None, ""), (n - 28, window[100:108]),
+                         (5, reverse_complement_str(window[900:908])),
+                         (n - 8, window[1990:1998])):
+            read = ["N"] * n
+            if at is not None:
+                read[at:at + 8] = kmer
+            reads.append("".join(read))
+    return contig, [(500, 2000)] * len(reads), reads, [1] * len(reads)
+
+
+# K5's edge cases (kb_edge_case)
+KB_EDGE_CASES = ("slice_plus_7", "slice_plus_8", "two_slices_plus_6",
+                 "unnamed_window", "one_row_tasks", "short_reads",
+                 "long_reads")
+
+
+def kb_edge_case(name: str):
+    """(case, the resident window id whose pairs to leave out or None, rows
+    a task) of an edge case of K5's schedule: the slice edges
+    (kb_slice_edge_cases); a window no task names (reads_n without the
+    pairs of window 1); tasks of one row (60 reads on one window); reads of
+    0-8 bytes, each against a window that holds it and one of 7 bytes;
+    reads of 250-700 bytes (resident_long_reads)."""
+    import numpy as np
+
+    edges = kb_slice_edge_cases()
+    if name in edges:
+        return resident_slice_edge(*edges[name]), None, 256
+    if name == "unnamed_window":
+        return resident_reads_n(), 1, 256
+    if name == "one_row_tasks":
+        return resident_shared(n_pairs=60), None, 1
+    if name == "long_reads":
+        return resident_long_reads(), None, 256
+    rng = np.random.default_rng(89)
+    contig = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 400)]
+    reads = [contig[100 + 7 * n:100 + 8 * n].tobytes().decode()
+             for n in range(9)]
+    return (contig, [(90, 200), (0, 7)] * 9,
+            [read for read in reads for _ in range(2)], [1] * 18), None, 256
+
+
 def resident_case(name: str):
     """(contig, spans, reads, min_scores) of a resident case: pair i is
     reads[i] against contig[spans[i][0]:][:spans[i][1]]."""
@@ -1632,8 +1747,10 @@ def kb_work(reads, table, offsets, lengths, row_read, tasks) -> dict:
     their device: the positions of each distinct window its tasks name
     (each window's bitmap set once), and each row's tests in the kernel's
     order (the forward row's 8-mers, then the reverse complement's) up to
-    and with its first set bit, or all of them; with the verdicts that
-    gives ("hit"), for a check against the plain version."""
+    and with its first set bit, or all of them, and the bytes of each read
+    those tests read, up to the last byte of its rows' furthest test
+    ("read_bytes", each read once); with the verdicts that gives ("hit"),
+    for a check against the plain version."""
     import torch
 
     from arriba_tpu_torch.ops import realign
@@ -1653,6 +1770,12 @@ def kb_work(reads, table, offsets, lengths, row_read, tasks) -> dict:
     L = reads.shape[1]
     n_tests = 2 * max(L - 7, 0)
     tests, hit = 0, torch.zeros(n, dtype=torch.bool, device=reads.device)
+    # _packed_kmers puts each 8-mer at its first byte of the 2 L-byte row
+    # (the last 7 of each half are -1, no test), so a row's tests read up
+    # to its first hit's byte + 8, or the whole row; a read's bytes reach
+    # its rows' furthest
+    extent = torch.zeros(reads.shape[0] // 2, dtype=torch.int64,
+                         device=reads.device)
     for a in range(0, n, 4096):
         rows = torch.arange(a, min(a + 4096, n), device=reads.device)
         read = row_read[rows].long()
@@ -1665,11 +1788,62 @@ def kb_work(reads, table, offsets, lengths, row_read, tasks) -> dict:
         found = (keys[at] == query) & (kmers >= 0) if len(keys) else \
             torch.zeros_like(kmers, dtype=torch.bool)
         any_hit = found.any(dim=1)
-        tests += int(torch.where(any_hit, found.int().argmax(dim=1) + 1,
+        first = found.long().argmax(dim=1)
+        tests += int(torch.where(any_hit, first + 1 - 7 * (first >= L),
                                  n_tests).sum())
+        reach = torch.where(any_hit, first + 8, 2 * L if n_tests else 0)
+        extent.scatter_reduce_(0, read, reach, "amax")
         hit[rows] = any_hit
     return {"positions": int(n_pos.sum()), "tests": tests, "hit": hit,
-            "windows": len(used)}
+            "windows": len(used),
+            "window_bytes": int(lengths.long()[used].sum()),
+            "reads": int(torch.unique(row_read).numel()),
+            "read_bytes": int(extent.sum())}
+
+
+def kb_bound(args, schedule, work) -> tuple:
+    """K5's bound on one launch's inputs: the bytes it must move (each used
+    window's bytes once, each used read's bytes as far as its tests reach,
+    kb_work's read_bytes, the rows' read ids, the tasks, the windows'
+    spans, the schedule, the verdicts) over the memory rate, against the
+    work's operations (kb_work) over the integer rate: (ms, "bytes" or
+    "operations")."""
+    _, _, offsets, _, row_read, tasks = args
+    n = row_read.shape[0]
+    n_bytes = (work["window_bytes"] + work["read_bytes"] + 4 * n
+               + 12 * tasks.shape[0] + 12 * offsets.shape[0]
+               + schedule.nbytes() + n)
+    return bound(n_bytes, work["positions"] * KB_OPS_PER_POSITION
+                 + work["tests"] * KB_OPS_PER_TEST)
+
+
+def kb_timed(args, schedule, want, runs: int = 20) -> dict:
+    """K5 on one launch's inputs (kernels.kb_passes): the verdicts checked
+    against want, then the median ms of the pair as the wrapper launches
+    it (the scratch bitmap zeroed, both passes) and of each pass alone (the
+    build pass ORs into the same bitmap again; the test pass reads the
+    finished one)."""
+    import torch
+
+    from arriba_tpu_torch import kernels
+
+    out = torch.full((args[4].shape[0],), 2, dtype=torch.uint8,
+                     device="cuda")
+
+    def pair():
+        for name, pass_args in kernels.kb_passes(*args, out, schedule):
+            kernels._call(name, *pass_args)
+
+    pair()
+    if not torch.equal(out.view(torch.bool), want):
+        raise SystemExit("K5 disagrees with its plain version")
+    (_, build_args), (_, test_args) = kernels.kb_passes(*args, out, schedule)
+    return {"ms": cuda_ms(pair, runs),
+            "build_ms": cuda_ms(
+                lambda: kernels._call("kmer_bitmap_build", *build_args),
+                runs),
+            "test_ms": cuda_ms(
+                lambda: kernels._call("kmer_bitmap_test", *test_args), runs)}
 
 
 def old_screen_rows(resident, window_chunk: int = 8192):
@@ -1689,13 +1863,13 @@ def old_screen_rows(resident, window_chunk: int = 8192):
 
 
 def sorted_screen_ms(resident, verdict, window_chunk: int = 8192,
-                     batch: int = 4096) -> float:
+                     batch: int = 4096, runs: int = 3) -> float:
     """The library call beside K5: the sorted screen (realign.shared_kmer_mask,
     torch.sort and torch.searchsorted) on the rows it took before the
     windows stayed on the card (old_screen_rows), built on the card from
     the resident tables, batch rows at a time; the sum of each batch's
-    median ms. Its verdicts, OR-ed over each pair's rows, must equal K5's
-    (verdict)."""
+    median ms over runs calls. Its verdicts, OR-ed over each pair's rows,
+    must equal K5's (verdict)."""
     import numpy as np
     import torch
 
@@ -1729,11 +1903,19 @@ def sorted_screen_ms(resident, verdict, window_chunk: int = 8192,
         shared.scatter_reduce_(0, pair_d[b].repeat_interleave(2),
                                hits.int(), "amax")
         total += cuda_ms(lambda: realign.shared_kmer_mask(read_rows, windows),
-                         3, warm_up=False)
+                         runs, warm_up=False)
     if not np.array_equal(shared.cpu().numpy() != 0, verdict):
         raise SystemExit("K5 disagrees with the sorted screen on the chunked "
                          "rows")
     return total
+
+
+# K5's variants timed on phase 2's main and shared_10000 cases, (rows a
+# task, positions a slice): the defaults, other task sizes, a smaller slice
+KB_VARIANTS = ((64, 16384), (32, 16384), (256, 16384), (64, 4096))
+# runs of 2,000 N over phase 2's main contig for K5's hot-word case (10 %
+# of its 4 Mb)
+KB_N_RUNS = 200
 
 
 def check_kmer_bitmap_screen() -> dict:
@@ -1741,12 +1923,17 @@ def check_kmer_bitmap_screen() -> dict:
     the card, on each resident case in both layouts (resident_layouts),
     with the verdicts a case must give: no screen read of "tail" (its even
     pairs) shares an 8-mer, and every read of "short" that holds a window
-    of 8 bytes or more does. On "main" (packed) the launch's median ms, its
-    bound from the work these inputs need (kb_work, its verdicts checked
-    too), the plain version's ms and the sorted screen's on the rows it
-    took before (sorted_screen_ms: library_ms); on "shared_10000" the
-    launch against the same rows as one task, one block setting the
-    window's bitmap once. Returns its record."""
+    of 8 bytes or more does; then on the edges of its schedule
+    (KB_EDGE_CASES), with the schedule given and made by
+    realign.kmer_bitmap_screen. On
+    "main" and "shared_10000" (packed) each variant of KB_VARIANTS
+    (kb_timed: the pair and each pass), and shared_10000 as one task, then
+    the main case with KB_N_RUNS runs of N (timed too); on
+    "main" the bound from the work these inputs need (kb_work, its verdicts
+    checked too; kb_bound), the plain version's ms and the sorted screen's
+    on the rows it took before (sorted_screen_ms: library_ms). Returns its
+    record, its ms those of the defaults (realign.KB_TASK_ROWS and
+    kernels.KB_SLICE) on "main"."""
     import numpy as np
     import torch
 
@@ -1757,12 +1944,13 @@ def check_kmer_bitmap_screen() -> dict:
               "source": "arriba_tpu_torch/kernels/csrc/kmer_bitmap_screen.cu",
               "replaces": "arriba_tpu/ops/realign.py:61", "max_abs_err": 0,
               "cases": {}}
+    defaults = (realign.KB_TASK_ROWS, kernels.KB_SLICE)
     for name in RESIDENT_CASES:
         case = resident_case(name)
         for layout, res in resident_layouts(case, "cuda").items():
             pairs = np.arange(len(res.pair_read))
-            order, args = realign.screen_inputs(res, pairs)
-            got = realign.kmer_bitmap_screen(*args)
+            order, args, schedule = realign.screen_inputs(res, pairs)
+            got = realign.kmer_bitmap_screen(*args, schedule=schedule)
             torch.cuda.synchronize()
             want = realign.kmer_bitmap_screen_plain(*args)
             err = int((got.int() - want.int()).abs().max())
@@ -1785,33 +1973,27 @@ def check_kmer_bitmap_screen() -> dict:
                                      "share an 8-mer with it")
             summary = {"pairs": len(pairs), "windows": len(res.win_len),
                        "tasks": int(args[5].shape[0]),
+                       "slices": int(schedule.slices.shape[0]),
                        "sharing": int(verdict.sum()), "max_abs_err": err}
             if layout == "packed" and name in ("main", "shared_10000"):
-                out = torch.zeros(len(pairs), dtype=torch.uint8,
-                                  device="cuda")
-                summary["ms"] = cuda_ms(
-                    lambda: kernels.launch_kmer_bitmap_screen(*args, out), 20)
-                # the same rows in tasks of a quarter of KB_TASK_ROWS
-                _, quarter = realign.screen_tasks(
-                    res.pair_window[pairs], realign.KB_TASK_ROWS // 4)
-                quarter_args = args[:5] + (torch.from_numpy(quarter).to(
-                    "cuda"),)
-                if not torch.equal(realign.kmer_bitmap_screen(*quarter_args),
-                                   want):
-                    raise SystemExit("K5 in smaller tasks disagrees")
-                summary["quarter_tasks_ms"] = cuda_ms(
-                    lambda: kernels.launch_kmer_bitmap_screen(*quarter_args,
-                                                              out), 20)
+                variants = {}
+                for rows, slice_len in KB_VARIANTS:
+                    _, v_args, v_schedule = realign.screen_inputs(
+                        res, pairs, rows, slice_len)
+                    variants[f"{rows} rows, slice {slice_len}"] = dict(
+                        kb_timed(v_args, v_schedule, want),
+                        tasks=int(v_args[5].shape[0]),
+                        slices=int(v_schedule.slices.shape[0]))
+                summary["variants"] = variants
+                summary.update(variants["%d rows, slice %d" % defaults])
             if layout == "packed" and name == "shared_10000":
                 one = torch.tensor([[0, 0, len(pairs)]], dtype=torch.int32,
                                    device="cuda")
                 one_args = args[:5] + (one,)
-                if not torch.equal(realign.kmer_bitmap_screen(*one_args),
-                                   want):
-                    raise SystemExit("K5 as one task disagrees")
-                summary["one_task_ms"] = cuda_ms(
-                    lambda: kernels.launch_kmer_bitmap_screen(*one_args, out),
-                    20)
+                one_schedule = realign.screen_schedule(
+                    one.cpu().numpy(), res.win_len, device="cuda")
+                summary["one_task_ms"] = kb_timed(
+                    one_args, one_schedule, want)["ms"]
             if layout == "packed" and name == "main":
                 if not verdict[np.arange(len(pairs)) % 8 <= 2].all():
                     raise SystemExit("a read copied from its window does not "
@@ -1820,19 +2002,14 @@ def check_kmer_bitmap_screen() -> dict:
                 if not torch.equal(work["hit"], want):
                     raise SystemExit("K5's counted tests do not give the "
                                      "plain version's verdicts")
-                used = np.unique(res.pair_read)
-                n_bytes = (int(res.win_len.sum()) + 2 * len(used)
-                           * res.accept_reads.shape[1] + 4 * len(pairs)
-                           + 12 * summary["tasks"] + 12 * len(res.win_len)
-                           + len(pairs))
-                bound_ms, bound_by = bound(
-                    n_bytes, work["positions"] * KB_OPS_PER_POSITION
-                    + work["tests"] * KB_OPS_PER_TEST)
+                bound_ms, bound_by = kb_bound(args, schedule, work)
                 summary.update(positions=work["positions"],
                                tests=work["tests"], bound_ms=bound_ms,
                                bound_by=bound_by)
                 record.update(
-                    ms=summary["ms"], bound_ms=bound_ms, bound_by=bound_by,
+                    ms=summary["ms"], build_ms=summary["build_ms"],
+                    test_ms=summary["test_ms"], bound_ms=bound_ms,
+                    bound_by=bound_by,
                     plain_ms=cuda_ms(
                         lambda: realign.kmer_bitmap_screen_plain(*args), 3),
                     library_ms=sorted_screen_ms(res, verdict))
@@ -1840,9 +2017,47 @@ def check_kmer_bitmap_screen() -> dict:
             log(f"K5 {name} ({layout}): {summary['sharing']}/{len(pairs)} "
                 f"pairs share an 8-mer, equal to the plain version"
                 + "".join(f"; {key} {summary[key]:.4f}"
-                          for key in ("ms", "quarter_tasks_ms",
+                          for key in ("ms", "build_ms", "test_ms",
                                       "one_task_ms", "bound_ms")
                           if key in summary))
+            for label, times in summary.get("variants", {}).items():
+                log(f"  {label}: " + ", ".join(
+                    f"{key} {value:.4f}" for key, value in times.items()
+                    if key.endswith("ms")))
+    # the main case with long runs of N: one hot 8-mer (65,535) a run
+    contig, spans, reads, _ = resident_main(n_runs=KB_N_RUNS)
+    res = realign.resident_pairs(
+        reads, [contig[a:a + n] for a, n in spans], "cuda")
+    _, args, schedule = realign.screen_inputs(res,
+                                              np.arange(len(res.pair_read)))
+    want = realign.kmer_bitmap_screen_plain(*args)
+    runs = dict(kb_timed(args, schedule, want),
+                pairs=len(reads), sharing=int(want.sum()), max_abs_err=0,
+                contig_n=int((contig == ord("N")).sum()))
+    record["cases"]["main_n_runs"] = runs
+    log(f"K5 main with {KB_N_RUNS} runs of 2,000 N: {runs['sharing']}/"
+        f"{len(reads)} pairs share an 8-mer, equal to the plain version; "
+        + ", ".join(f"{key} {runs[key]:.4f}"
+                    for key in ("ms", "build_ms", "test_ms")))
+    for name in KB_EDGE_CASES:
+        (contig, spans, reads, _), left_out, rows = kb_edge_case(name)
+        res = realign.resident_pairs(
+            reads, [contig[a:a + n] for a, n in spans], "cuda")
+        pairs = np.flatnonzero(res.pair_window != (
+            -1 if left_out is None else left_out))
+        _, args, schedule = realign.screen_inputs(res, pairs, rows)
+        want = realign.kmer_bitmap_screen_plain(*args)
+        for given in (schedule, None):
+            if not torch.equal(realign.kmer_bitmap_screen(
+                    *args, schedule=given), want):
+                raise SystemExit(f"K5 disagrees with its plain version on "
+                                 f"the edge case {name}")
+        record["cases"][name] = {"pairs": len(pairs),
+                                 "sharing": int(want.sum()),
+                                 "slices": int(schedule.slices.shape[0]),
+                                 "max_abs_err": 0}
+        log(f"K5 {name}: {int(want.sum())}/{len(pairs)} pairs share an "
+            f"8-mer, equal to the plain version")
     return record
 
 
@@ -1960,16 +2175,64 @@ MAIN_K1_PLAIN_BATCH = 16_384
 MAIN_KB_WINDOW_CUT = 128
 
 
+def launch_as_resident(args):
+    """One K5 launch's inputs as the resident tables old_screen_rows and
+    sorted_screen_ms read, its rows as the pairs."""
+    import types
+
+    import numpy as np
+
+    from arriba_tpu_torch.ops import realign
+
+    reads, table, offsets, lengths, row_read, tasks = args
+    return types.SimpleNamespace(
+        table=table, accept_reads=reads, win_offset=offsets.cpu().numpy(),
+        win_len=lengths.cpu().numpy().astype(np.int64),
+        pair_window=realign._task_rows(tasks, row_read.shape[0]).cpu()
+        .numpy(), pair_read=row_read.cpu().numpy().astype(np.int64))
+
+
+def accept_held_work(args, rows, verdicts, batch: int = 2048) -> dict:
+    """accept_work on the held rows of one launch of K1's indexed entry,
+    made dense as its plain version makes them (the read's read_len bytes,
+    0 past them; the window's win_len bytes, 1 past them, W wide), batch
+    rows at a time: positions and cells summed."""
+    import torch
+
+    reads, table, offsets, params, W = args
+    flat = reads.reshape(-1)
+    L = reads.shape[1]
+    lanes_r = torch.arange(L, device=reads.device)
+    lanes_w = torch.arange(W, device=reads.device)
+    total = {"positions": 0, "cells": 0}
+    for a in range(0, len(rows), batch):
+        held = rows[a:a + batch]
+        off, p = offsets[held].long(), params[held]
+        r = flat[(off[:, :1] + lanes_r).clamp(0, flat.numel() - 1)]
+        r = torch.where(lanes_r < p[:, :1], r, 0)
+        w = table[(off[:, 1:] + lanes_w).clamp(0, table.numel() - 1)]
+        w = torch.where(lanes_w < p[:, 1:2], w, 1)
+        work = accept_work(r, w, p, verdicts[a:a + batch])
+        for key in total:
+            total[key] += work[key]
+    return total
+
+
 def check_main_launches(kept: dict, records: list) -> None:
     """Each launch of K5 and of K1's indexed entry that the main path made
     (kept by kept_launches), made again on the same tensors through its
     wrapper and held against its plain version: K5 on every row of each
-    launch, K1's indexed entry on a stride of every launch's rows (at most
-    MAIN_K1_SAMPLE rows in all: its plain version walks every row's 8,192
-    window bytes), with the launch's median ms; then each again with its
-    verdicts broken up (MAIN_KB_WINDOW_CUT, K1's lowered min_score), where
-    both verdicts must occur. Adds a "main path" case to each kernel's
-    record."""
+    launch (its verdicts also from kb_work), K1's indexed entry on a stride
+    of every launch's rows (at most MAIN_K1_SAMPLE rows in all: its plain
+    version walks every row's 8,192 window bytes); then each again with its
+    verdicts broken up (MAIN_KB_WINDOW_CUT, the schedule then made by
+    realign.kmer_bitmap_screen; K1's lowered min_score), where both
+    verdicts must occur. Each launch's median ms (K5's pair and each pass,
+    kb_timed) and its bound: K5's from the work its inputs need (kb_work,
+    kb_bound), with the sorted screen on the rows it took before
+    (sorted_screen_ms) as its library time; K1's from accept_work on the
+    held rows, scaled by the launch's rows over them (an estimate from the
+    stride). Adds a "main path" case to each kernel's record."""
     import torch
 
     from arriba_tpu_torch import kernels
@@ -1980,74 +2243,96 @@ def check_main_launches(kept: dict, records: list) -> None:
         if not kept.get(name):
             raise SystemExit(f"the main path made no launch of {name}")
     case = {"launches": [], "max_abs_err": 0}
-    for args in kept["kmer_bitmap_screen"]:
+    for args, schedule in kept["kmer_bitmap_screen"]:
         cut = args[:3] + (args[3].clamp(max=MAIN_KB_WINDOW_CUT),) + args[4:]
-        sharing = []
-        for launch in (args, cut):
-            got = realign.kmer_bitmap_screen(*launch)
+        wants = []
+        for launch, given in ((args, schedule), (cut, None)):
+            got = realign.kmer_bitmap_screen(*launch, schedule=given)
             torch.cuda.synchronize()
-            want = realign.kmer_bitmap_screen_plain(*launch)
-            if not torch.equal(got, want):
+            wants.append(realign.kmer_bitmap_screen_plain(*launch))
+            if not torch.equal(got, wants[-1]):
                 raise SystemExit("K5 disagrees with its plain version on a "
                                  "main path launch")
-            sharing.append(int(want.sum()))
+        want = wants[0]
+        sharing = [int(x.sum()) for x in wants]
         rows = int(args[4].shape[0])
         if not 0 < sharing[1] < rows:
             raise SystemExit("K5's main path launch with its windows cut "
                              "gave one verdict only")
-        out = torch.zeros(rows, dtype=torch.uint8, device="cuda")
-        ms = cuda_ms(lambda: kernels.launch_kmer_bitmap_screen(*args, out),
-                     5)
-        case["launches"].append({"rows": rows,
-                                 "tasks": int(args[5].shape[0]),
-                                 "windows": int(args[2].shape[0]),
-                                 "sharing": sharing[0],
-                                 "sharing_windows_cut": sharing[1],
-                                 "ms": ms})
+        work = kb_work(*args)
+        if not torch.equal(work["hit"], want):
+            raise SystemExit("K5's counted tests on a main path launch do not "
+                             "give the plain version's verdicts")
+        bound_ms, bound_by = kb_bound(args, schedule, work)
+        times = kb_timed(args, schedule, want, runs=5)
+        library_ms = sorted_screen_ms(launch_as_resident(args),
+                                      want.cpu().numpy(), runs=1)
+        case["launches"].append(dict(
+            times, rows=rows, tasks=int(args[5].shape[0]),
+            windows=work["windows"], slices=int(schedule.slices.shape[0]),
+            positions=work["positions"], tests=work["tests"],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            sharing=sharing[0], sharing_windows_cut=sharing[1]))
         log(f"K5 main path launch: {sharing[0]}/{rows} rows share an 8-mer "
             f"({sharing[1]} with the windows cut to "
             f"{MAIN_KB_WINDOW_CUT} bytes), equal to the plain version on "
-            f"every row; {ms:.4f} ms")
+            f"every row; {times['ms']:.4f} ms (build {times['build_ms']:.4f}"
+            f", test {times['test_ms']:.4f}), bound {bound_ms:.4f} ms "
+            f"({bound_by}: {work['positions']} positions, {work['tests']} "
+            f"tests, {work['read_bytes']} read bytes), the sorted screen "
+            f"{library_ms:.2f} ms")
     by_name["kmer_bitmap_screen"]["cases"]["main path"] = case
     launches = kept["accept_wavefront_indexed"]
-    total = sum(args[2].shape[0] for args in launches)
+    total = sum(args[2].shape[0] for (args,) in launches)
     stride = max(1, -(-total // MAIN_K1_SAMPLE))
     case = {"launches": [], "max_abs_err": 0, "stride": stride}
-    for args in launches:
+    for (args,) in launches:
         reads, table, offsets, params, W = args
         n = offsets.shape[0]
         lowered = params.clone()
         lowered[:, 2] = torch.minimum(params[:, 2], 9 + torch.arange(
             n, device="cuda", dtype=torch.int32) % 24)
         rows = torch.arange(0, n, stride, device="cuda")
-        accepting = []
+        accepting, wants = [], []
         for p in (params, lowered):
             got = realign.accept_wavefront_indexed(reads, table, offsets, p,
                                                    W)
             torch.cuda.synchronize()
-            want = realign.accept_wavefront_indexed_plain(
+            wants.append(realign.accept_wavefront_indexed_plain(
                 reads, table, offsets[rows], p[rows], W,
-                batch_rows=MAIN_K1_PLAIN_BATCH)
-            if not torch.equal(got[rows], want):
+                batch_rows=MAIN_K1_PLAIN_BATCH))
+            if not torch.equal(got[rows], wants[-1]):
                 raise SystemExit("K1's indexed entry disagrees with its "
                                  "plain version on a main path launch")
-            accepting.append((int(got.sum()), int(want.sum())))
+            accepting.append((int(got.sum()), int(wants[-1].sum())))
         if not 0 < accepting[1][1] < len(rows):
             raise SystemExit("K1's main path launch with min_score lowered "
                              "gave one verdict only")
         out = torch.zeros(n, dtype=torch.int32, device="cuda")
         ms = cuda_ms(lambda: kernels.launch_accept_wavefront_indexed(
             reads, table, offsets, params, out, W), 3, setup=out.zero_)
+        work = accept_held_work(args, rows, wants[0])
+        scale = n / len(rows)
+        n_bytes = reads.numel() + table.numel() + 40 * n
+        bound_ms, bound_by = bound(
+            n_bytes, scale * (work["positions"] * AW_OPS_PER_POSITION
+                              + work["cells"] * AW_OPS_PER_CELL))
         case["launches"].append({
             "rows": int(n), "held": len(rows), "accepting": accepting[0][0],
             "held_accepting": accepting[0][1],
             "accepting_lowered": accepting[1][0],
-            "held_accepting_lowered": accepting[1][1], "ms": ms})
+            "held_accepting_lowered": accepting[1][1], "ms": ms,
+            "held_positions": work["positions"], "held_cells": work["cells"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_from": f"the held rows scaled by {scale:.3f} (an estimate "
+                          f"from the stride)"})
         log(f"K1 indexed main path launch: {accepting[0][0]}/{n} rows "
             f"accept ({accepting[1][0]} at the lowered min_score); every "
             f"{stride}th row ({len(rows)}, {accepting[0][1]} / "
             f"{accepting[1][1]} accepting) equal to the plain version; "
-            f"{ms:.4f} ms")
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, estimated "
+            f"from the held rows' {work['positions']} positions and "
+            f"{work['cells']} cells x {scale:.3f})")
     by_name["accept_wavefront_indexed"]["cases"]["main path"] = case
 
 
@@ -2444,8 +2729,8 @@ def resident_bytes(totals: dict):
 
 @contextlib.contextmanager
 def kept_launches(kept: dict):
-    """Keep in kept, by kernel, the arguments of each launch of K5 and of
-    K1's indexed entry that realign.screen_launches and
+    """Keep in kept, by kernel, the arguments of each launch of K5 (with its
+    schedule) and of K1's indexed entry that realign.screen_launches and
     realign.accept_launches give meanwhile (their tensors stay on the
     card), so that check_main_launches makes those launches again."""
     from arriba_tpu_torch.ops import realign
@@ -2457,9 +2742,9 @@ def kept_launches(kept: dict):
 
     def keeping(name, launches):
         def wrapped(*args, **kwargs):
-            for rows, launch in launches(*args, **kwargs):
-                kept.setdefault(name, []).append(launch)
-                yield rows, launch
+            for rows, *launch in launches(*args, **kwargs):
+                kept.setdefault(name, []).append(tuple(launch))
+                yield (rows, *launch)
         return wrapped
 
     for name, (attribute, launches) in inner.items():
@@ -3017,7 +3302,11 @@ def against_cases(kernel: str) -> dict:
     MXU_ANY_K and the mixed rows at MXU_ANY_MIXED; K3w: SWW_CASES, the other
     build through its 32-bit entry point, this checkout through the width
     sw_route picks, as does any other build that has that entry point (the
-    output set to -1 before each launch)."""
+    output set to -1 before each launch); K5: RESIDENT_CASES packed, the
+    other builds through the one-pass entry point (KB_ONE_PASS) on tasks of
+    KB_ONE_PASS_ROWS rows, this checkout through its wrapper (both passes,
+    the scratch bitmap zeroed) on its own tasks and schedule (the output
+    set to 2 before each launch)."""
     import numpy as np
     import torch
 
@@ -3119,20 +3408,50 @@ def against_cases(kernel: str) -> dict:
                 lambda out=out, want=want: torch.equal(out, want),
                 (route, (r, w, out, kernels.sw_wide_carry(r, w, route),
                          *shape)))
+    elif kernel == "kmer_bitmap_screen":
+        from arriba_tpu_torch import kernels
+
+        for name in RESIDENT_CASES:
+            res = resident_layouts(resident_case(name), cuda)["packed"]
+            pairs = np.arange(len(res.pair_read))
+            _, args, schedule = realign.screen_inputs(res, pairs)
+            _, one_pass = realign.screen_tasks(res.pair_window[pairs],
+                                               KB_ONE_PASS_ROWS)
+            one_pass = torch.from_numpy(one_pass).to(cuda)
+            reads, table, offsets, lengths, row_read, _ = args
+            out = torch.empty(len(pairs), dtype=torch.uint8, device=cuda)
+            want = realign.kmer_bitmap_screen_plain(*args)
+            cases[name] = (
+                (reads, table, offsets, lengths, row_read, one_pass, out,
+                 len(pairs), len(one_pass), reads.shape[1], reads.shape[0],
+                 offsets.shape[0], table.numel()),
+                lambda out=out: out.fill_(2),
+                lambda out=out, want=want: torch.equal(out.view(torch.bool),
+                                                       want),
+                (None, lambda args=args, out=out, schedule=schedule:
+                 kernels.launch_kmer_bitmap_screen(*args, out, schedule)))
     else:
         raise SystemExit(f"--against takes accept_wavefront, low_entropy, "
                          f"smith_waterman, smith_waterman_wide, "
-                         f"mxu_kmer_screen or mxu_kmer_screen_any_k, not "
-                         f"{kernel}")
+                         f"mxu_kmer_screen, mxu_kmer_screen_any_k or "
+                         f"kmer_bitmap_screen, not {kernel}")
     return cases
+
+
+# K5's one-pass C entry point (the kernel before its two passes), which
+# --against kmer_bitmap_screen runs from an earlier build, and the rows of
+# that kernel's tasks
+KB_ONE_PASS = ("arriba_kmer_bitmap_screen", 7, 5)
+KB_ONE_PASS_ROWS = 256
 
 
 def compare(kernel: str, sources: list) -> None:
     """The kernel built from each source against this checkout's build, on
     its phase-2 inputs (against_cases). A source is a csrc directory whose
-    <kernel>.cu has this checkout's C entry point, such as an earlier
-    commit's; where a case names this checkout's own entry point (K3w's
-    16-bit pairs, K2's long-row kernel), a source that has it runs it too.
+    <kernel>.cu has this checkout's C entry point (K5: the one-pass entry
+    point, KB_ONE_PASS), such as an earlier commit's; where a case names
+    this checkout's own entry point (K3w's 16-bit pairs, K2's long-row
+    kernel), a source that has it runs it too.
     Every build must give the plain version's output. Each case times the
     launches (median of 20 windows of K2_K3_BATCH, or of single
     launches where the output is zeroed before each) in the order this
@@ -3146,7 +3465,12 @@ def compare(kernel: str, sources: list) -> None:
 
     from arriba_tpu_torch.kernels import build
 
-    symbol, argtypes = build._SIGNATURES[kernel]
+    if kernel == "kmer_bitmap_screen":
+        symbol, pointers, ints = KB_ONE_PASS
+        argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                    + [ctypes.c_longlong, ctypes.c_void_p])
+    else:
+        symbol, argtypes = build._SIGNATURES[kernel]
     library = build._LIBRARIES.get(kernel, kernel)
     procs = []
     for k, source in enumerate(sources):
@@ -3159,7 +3483,8 @@ def compare(kernel: str, sources: list) -> None:
     for _, ptxas in build.build((library,)).values():
         for line in ptxas_lines(ptxas):
             log(f"built this checkout: {line}")
-    entries = {"this checkout": build.load(kernel)[0]}
+    entries = {"this checkout": build.load(kernel)[0]
+               if kernel in build._SIGNATURES else None}
     libraries = {}
     for source, target, proc in procs:
         report = proc.communicate()[0].decode(errors="replace")
@@ -3210,8 +3535,13 @@ def compare(kernel: str, sources: list) -> None:
     for name, (args, setup, check, own) in against_cases(kernel).items():
         times: dict = {label: [] for label in entries}
         for label in list(entries) + list(reversed(entries)):
-            entry = own_entry(label, own[0]) if own is not None else None
-            if entry is not None:
+            entry = (own_entry(label, own[0])
+                     if own is not None and own[0] is not None else None)
+            if own is not None and own[0] is None:
+                # this checkout's launch through its wrapper
+                launch = (own[1] if label == "this checkout"
+                          else launcher(label, args))
+            elif entry is not None:
                 launch = launcher(label, own[1], entry)
             else:
                 launch = launcher(label, args)
@@ -3539,10 +3869,11 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     # K1 adds its every-diagonal bound, K4 its full-product bound and phase
     # 6's time of the sorted screen, its any-k kernel an empty launch's
-    # time, K3w its 32-bit lanes' time and their bound, all their phase-2
-    # cases
+    # time, K3w its 32-bit lanes' time and their bound, K5 each pass's
+    # time, all their phase-2 cases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "build_ms", "test_ms",
             "walk_all_bound_ms", "full_product_bound_ms", "sorted_screen_ms",
             "empty_ms", "ms_32", "bound_32_ms", "cases")
     print(json.dumps({"kernels": [{key: record[key] for key in keys

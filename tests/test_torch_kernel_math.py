@@ -41,7 +41,9 @@ from arriba_tpu.ops import realign as jax_realign  # noqa: E402
 from arriba_tpu_torch.kernels.build import CSRC  # noqa: E402
 from arriba_tpu_torch.ops import readfilters, realign  # noqa: E402
 from chip_smoke import (ACCEPT_KINDS, accept_adversarial_inputs,  # noqa: E402
-                        mxu_inputs, mxu_work, resident_chunk_edges,
+                        KB_EDGE_CASES, kb_edge_case, kb_slice_edge_cases,
+                        mxu_inputs,
+                        mxu_work, resident_chunk_edges,
                         resident_layouts, resident_main, resident_reads_n,
                         resident_shared, resident_short, resident_tail)
 
@@ -813,55 +815,138 @@ void aw_rows_indexed(const uint8_t* reads, long long read_bytes,
     }
 }
 
-// K5 as the kernel does it, a task at a time: the bitmap cleared, the
-// window staged KB_TILE positions at a time as code bytes, each position's
-// 8-mer set; each row of the task tested 32 tests at a time (a warp's
-// lanes), stopping after the first group with a set bit. tested[row]
-// counts the tests made (each lane's test below the row's tests).
-void kb_rows(const uint8_t* reads, const uint8_t* table,
-             const int64_t* offsets, const int32_t* lengths,
-             const int32_t* row_read, const int32_t* tasks, uint8_t* out,
-             int32_t* tested, int n_rows, int n_tasks, int L,
-             int n_read_rows, int n_windows, long long table_bytes) {
-    std::vector<uint32_t> bitmap(arriba::KB_WORDS);
-    std::vector<uint8_t> codes(arriba::KB_TILE + arriba::KB_K - 1);
-    for (int b = 0; b < n_tasks; ++b) {
-        const int32_t* task = tasks + 3 * (long)b;
+// K5's two passes as the kernels run them, through the header's steps.
+// The build pass a slice at a time (the slice table of
+// realign.screen_schedule): its groups from kb_slice_first_group in a
+// warp's chunks, each lane's group loaded where kb_needs_next says (as
+// kb_load16 loads it; it must start on a 16-byte boundary of the table
+// and at or before the window's last byte: -1 where one does not), coded,
+// each 8-mer of the lane's span set from its codes and the next lane's
+// into the bitmap of the slice's rank (an OR, as the blocks' atomicOr and
+// whole-window stores are). The test pass a task at a time against its
+// rank's bitmap, each row as a warp takes it: its first KB_FIRST_GROUPS
+// groups staged (as its batch stages them) over what an earlier row left,
+// then KB_STAGE_GROUPS where kb_restage says, a lane a group (each inside
+// the read table and aligned: -1 where one is not), and 32 tests at a time,
+// stopping after the first group with a set bit. tested[row] counts the
+// tests made (each lane's test below the row's tests).
+int kb_rows(const uint8_t* reads, const uint8_t* table,
+            const int64_t* offsets, const int32_t* lengths,
+            const int32_t* row_read, const int32_t* tasks,
+            const int32_t* rank_window, const int32_t* task_rank,
+            const int32_t* slices, uint8_t* out, int32_t* tested, int n_rows,
+            int n_tasks, int n_used, int n_slices, int L, int n_read_rows,
+            int n_windows, long long table_bytes, int slice_len) {
+    std::vector<uint32_t> bitmaps((size_t)std::max(n_used, 1) *
+                                  arriba::KB_WORDS);
+    for (int b = 0; b < n_slices; ++b) {
+        const int rank = slices[2 * b];
+        const int p0 = slices[2 * b + 1];
+        if (rank < 0 || rank >= n_used || p0 < 0) continue;
         long long first;
         int len;
-        arriba::kb_window(offsets, lengths, task[0], n_windows, table_bytes,
-                          &first, &len);
-        const uint8_t* window = table + first;
-        std::fill(bitmap.begin(), bitmap.end(), 0u);
-        const int n_pos = arriba::kb_window_positions(len);
-        for (int t0 = 0; t0 < n_pos; t0 += arriba::KB_TILE) {
-            const int n = std::min(arriba::KB_TILE, n_pos - t0);
-            for (int t = 0; t < n + arriba::KB_K - 1; ++t) {
-                codes[t] = (uint8_t)arriba::aw_kmer_code(window[t0 + t]);
+        arriba::kb_window(offsets, lengths, rank_window[rank], n_windows,
+                          table_bytes, &first, &len);
+        const int p1 = arriba::kb_slice_end(p0, len, slice_len);
+        if (p1 <= p0) continue;
+        uint32_t* bitmap = &bitmaps[(size_t)rank * arriba::KB_WORDS];
+        const int g0 = arriba::kb_slice_first_group(first, p0);
+        const int n_groups = arriba::kb_slice_groups(g0, p1);
+        for (int chunk = 0; arriba::KB_CHUNK_GROUPS * chunk < n_groups;
+             ++chunk) {
+            uint32_t c0[32];
+            for (int lane = 0; lane < 32; ++lane) {
+                const int s = g0 + arriba::KB_GROUP
+                    * (arriba::KB_CHUNK_GROUPS * chunk + lane);
+                uint32_t w[4] = {0, 0, 0, 0}, pad;
+                if (arriba::kb_needs_next(s - arriba::KB_GROUP, p1)) {
+                    const long long at = first + s;
+                    if (at < 0 || at % 16 != 0 || at > first + len - 1) {
+                        return -1;
+                    }
+                    arriba::kb_load16(table, table_bytes, at, w);
+                }
+                arriba::kb_code16(w, &c0[lane], &pad);
             }
-            for (int t = 0; t < n; ++t) {
-                const int kmer = arriba::aw_kmer_coded(&codes[t]);
-                bitmap[kmer >> 5] |= arriba::kb_mask(kmer);
+            for (int lane = 0; lane < arriba::KB_CHUNK_GROUPS; ++lane) {
+                const int s = g0 + arriba::KB_GROUP
+                    * (arriba::KB_CHUNK_GROUPS * chunk + lane);
+                if (s >= p1) break;
+                int lo, hi;
+                arriba::kb_group_span(s, p0, p1, &lo, &hi);
+                for (int o = lo; o < hi; ++o) {
+                    const int kmer =
+                        arriba::kb_kmer_at(c0[lane], c0[lane + 1], o);
+                    bitmap[kmer >> 5] |= arriba::kb_mask(kmer);
+                }
             }
         }
-        const int n_tests = arriba::kb_row_tests(L);
+    }
+    std::vector<uint32_t> empty(arriba::KB_WORDS, 0u);
+    const int n_tests = arriba::kb_row_tests(L);
+    const int row_groups = 2 * L / arriba::KB_GROUP;
+    const long long read_bytes = (long long)n_read_rows * L;
+    uint32_t codes[arriba::KB_STAGE_GROUPS + 1];
+    uint32_t pads[arriba::KB_STAGE_GROUPS + 1];
+    for (int b = 0; b < n_tasks; ++b) {
+        const int32_t* task = tasks + 3 * (long)b;
+        const int rank = task_rank[b];
+        const uint32_t* bitmap = rank >= 0 && rank < n_used
+            ? &bitmaps[(size_t)rank * arriba::KB_WORDS] : empty.data();
         const int end = std::min(task[2], n_rows);
         for (int r = std::max(task[1], 0); r < end; ++r) {
-            const uint8_t* fwd =
-                arriba::kb_read_row(reads, row_read[r], n_read_rows, L);
+            const int read = row_read[r];
+            const bool valid =
+                arriba::kb_read_row(reads, read, n_read_rows, L) != nullptr;
+            const long long row = 2LL * read * L;
+            // n groups of the stage from group s0, a lane a group (-1: a
+            // load left the read table or was not aligned); the entries
+            // past them keep what they held
+            auto stage = [&](int s0, int n) {
+                for (int lane = 0; lane < n; ++lane) {
+                    uint32_t c = 0, pad = 0xffffu;
+                    if (s0 + lane < row_groups) {
+                        const long long at =
+                            row + (long long)arriba::KB_GROUP * (s0 + lane);
+                        if (at % 16 != 0 || at + 16 > read_bytes) return -1;
+                        uint32_t w[4];
+                        arriba::kb_load16(reads, read_bytes, at, w);
+                        arriba::kb_code16(w, &c, &pad);
+                    }
+                    codes[lane] = c;
+                    pads[lane] = pad;
+                }
+                return 0;
+            };
+            // what an earlier row left in the stage: garbage here
+            for (int k = 0; k <= arriba::KB_STAGE_GROUPS; ++k) {
+                codes[k] = 0x9e3779b9u * (r + k + 1);
+                pads[k] = 0x7f4a7c15u * (r + k + 1);
+            }
             bool hit = false;
-            for (int base = 0; fwd && base < n_tests && !hit; base += 32) {
+            int s0 = 0;  // the row's batch stages its first groups
+            int staged = arriba::KB_FIRST_GROUPS;
+            if (valid && stage(s0, staged) != 0) return -1;
+            for (int base = 0; valid && base < n_tests && !hit; base += 32) {
+                int g0, g1;
+                arriba::kb_test_groups(base, n_tests, L, &g0, &g1);
+                if (arriba::kb_restage(s0, staged, g0, g1)) {
+                    s0 = g0;
+                    staged = arriba::KB_STAGE_GROUPS;
+                    if (stage(s0, staged) != 0) return -1;
+                }
                 for (int lane = 0; lane < 32; ++lane) {
                     const int q = base + lane;
                     if (q >= n_tests) break;
                     tested[r] += 1;
-                    hit |= arriba::kb_test(bitmap.data(),
-                                           arriba::kb_row_kmer(fwd, q, L));
+                    hit |= arriba::kb_test(bitmap, arriba::kb_staged_kmer(
+                                                       codes, pads, s0, q, L));
                 }
             }
             out[r] = hit ? 1 : 0;
         }
     }
+    return 0;
 }
 
 // every diagonal of every row walked: accepts[row, delta + L - 1]
@@ -1015,6 +1100,27 @@ void le_rows_kernel(const uint8_t* packed, const int32_t* meta,
         }
         out[row] = flagged;
     }
+}
+
+// kb_code16 of n groups of 16 bytes: out[2 g] the codes, out[2 g + 1]
+// the PAD marks of group g
+void kb_code_groups(const uint8_t* bytes, uint32_t* out, int n) {
+    for (int g = 0; g < n; ++g) {
+        uint32_t w[4];
+        std::memcpy(w, bytes + 16 * g, 16);
+        arriba::kb_code16(w, &out[2 * g], &out[2 * g + 1]);
+    }
+}
+
+int kb_homopolymer_of(int kmer) { return arriba::kb_homopolymer(kmer); }
+
+// K5's constants: the default slice, the bitmap words, a group's bytes,
+// the groups a warp stages
+void kb_constants(int32_t* out) {
+    out[0] = arriba::KB_SLICE;
+    out[1] = arriba::KB_WORDS;
+    out[2] = arriba::KB_GROUP;
+    out[3] = arriba::KB_STAGE_GROUPS;
 }
 
 // the long-row procedure's constants and plan: lanes, words, the field's
@@ -1387,8 +1493,11 @@ def harness(tmp_path_factory):
     lib.aw_rows_indexed.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    lib.kb_rows.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong]
+    lib.kb_rows.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_longlong, ctypes.c_int]
+    lib.kb_constants.argtypes = [ctypes.c_void_p]
+    lib.kb_code_groups.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.kb_homopolymer_of.argtypes = [ctypes.c_int]
     lib.le_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_rows_kernel.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.le_long_constants.argtypes = [ctypes.c_void_p]
@@ -1591,40 +1700,176 @@ _RESIDENT_CASES = {
 }
 
 
+def _kb_emulate(harness, args, schedule):
+    """K5's two passes under g++ (kb_rows) on screen_inputs' tensors:
+    (verdicts, tests made a row)."""
+    reads, table, offsets, lengths, row_read, tasks = (x.numpy()
+                                                       for x in args)
+    rank_window, task_rank, slices = (x.numpy() for x in (
+        schedule.rank_window, schedule.task_rank, schedule.slices))
+    n = len(row_read)
+    out = np.zeros(n, np.uint8)
+    tested = np.zeros(n, np.int32)
+    assert harness.kb_rows(
+        _ptr(reads), _ptr(table), _ptr(offsets), _ptr(lengths),
+        _ptr(row_read), _ptr(tasks), _ptr(rank_window), _ptr(task_rank),
+        _ptr(slices), _ptr(out), _ptr(tested), n, len(tasks),
+        len(rank_window), len(slices), reads.shape[1], reads.shape[0],
+        len(offsets), table.size, schedule.slice_len) == 0
+    return out != 0, tested
+
+
+# a slice length that cuts the CPU cases' windows at many edges
+_SMALL_SLICE = 48
+
+
 @pytest.mark.parametrize("layout", ["packed", "contig"])
 @pytest.mark.parametrize("case", list(_RESIDENT_CASES))
 def test_kmer_bitmap_screen_emulation_matches_plain_and_jax(harness, case,
                                                             layout):
-    """K5's blocks under g++ (kb_rows: the tasks of screen_inputs, a window
-    of the shared case split over two) against its plain version and the
-    JAX package's screen_pairs, on the tables resident_pairs packs and on
-    the contig as the window table (unaligned windows, the bytes past each
-    the contig's); a row without a hit makes every test, one with a hit
-    stops at the end of its group of 32."""
+    """K5's two passes under g++ (kb_rows: the tasks and slices of
+    screen_inputs, a window of the shared case split over several tasks)
+    against its plain version and the JAX package's screen_pairs, on the
+    tables resident_pairs packs and on the contig as the window table
+    (unaligned windows, the bytes past each the contig's); a row without a
+    hit makes every test, one with a hit stops at the end of its group of
+    32."""
+    _kb_emulation_case(harness, case, layout, realign.KB_SLICE)
+
+
+@pytest.mark.parametrize("layout", ["packed", "contig"])
+@pytest.mark.parametrize("case", list(_RESIDENT_CASES))
+def test_kmer_bitmap_screen_emulation_small_slices(harness, case, layout):
+    """The same at slices of 48 positions, which cut every window of these
+    cases at many edges."""
+    _kb_emulation_case(harness, case, layout, _SMALL_SLICE)
+
+
+def _kb_emulation_case(harness, case, layout, slice_len):
     made = _RESIDENT_CASES[case]()
     resident = resident_layouts(made, torch.device("cpu"))[layout]
     n = len(resident.pair_read)
-    order, args = realign.screen_inputs(resident, np.arange(n))
-    reads, table, offsets, lengths, row_read, tasks = (x.numpy()
-                                                       for x in args)
-    out = np.zeros(n, np.uint8)
-    tested = np.zeros(n, np.int32)
-    harness.kb_rows(_ptr(reads), _ptr(table), _ptr(offsets), _ptr(lengths),
-                    _ptr(row_read), _ptr(tasks), _ptr(out), _ptr(tested), n,
-                    len(tasks), reads.shape[1], reads.shape[0], len(offsets),
-                    table.size)
+    order, args, schedule = realign.screen_inputs(resident, np.arange(n),
+                                                  slice_len=slice_len)
+    got, tested = _kb_emulate(harness, args, schedule)
     plain = realign.kmer_bitmap_screen_plain(*args).numpy()
-    np.testing.assert_array_equal(out != 0, plain)
+    np.testing.assert_array_equal(got, plain)
     verdict = np.zeros(n, bool)
     verdict[order] = plain
     contig, spans, seqs, _ = made
     np.testing.assert_array_equal(verdict, jax_realign.screen_pairs(
         seqs, [contig[a:a + m] for a, m in spans]))
-    n_tests = 2 * (reads.shape[1] - 7)
+    n_tests = 2 * (args[0].shape[1] - 7)
     assert (tested[~plain] == n_tests).all()
     assert ((tested[plain] % 32 == 0) | (tested[plain] == n_tests)).all()
     if case == "shared":
-        assert len(tasks) > 1 and 0 < plain.sum() < n
+        assert len(args[5]) > 1 and 0 < plain.sum() < n
+    if slice_len == _SMALL_SLICE and case in ("main", "reads_n"):
+        assert len(schedule.slices) > 10 * len(schedule.rank_window)
+
+
+_SLICE_EDGE_CASES = kb_slice_edge_cases()
+
+
+def _kb_edge_inputs(case, layout):
+    """(made, resident, pairs, rows_per_task) of an edge case of K5
+    (chip_smoke.kb_edge_case) on the CPU, in a layout of
+    resident_layouts."""
+    made, left_out, rows_per_task = kb_edge_case(case)
+    resident = resident_layouts(made, torch.device("cpu"))[layout]
+    pairs = np.flatnonzero(resident.pair_window != (
+        -1 if left_out is None else left_out))
+    return made, resident, pairs, rows_per_task
+
+
+@pytest.mark.parametrize("layout", ["packed", "contig"])
+@pytest.mark.parametrize("case", KB_EDGE_CASES)
+def test_kmer_bitmap_screen_emulation_edges(harness, case, layout):
+    """K5's two passes under g++ at the edges of its schedule, against its
+    plain version and the JAX package's screen_pairs, on the packed tables
+    and on the contig as the window table (there the slices' last groups
+    sit 10 bytes past a 16-byte boundary): windows of KB_SLICE
+    + 7, + 8 and 2 KB_SLICE + 6 bytes, each read sharing with its window
+    only an 8-mer planted across a slice's edge or at the window's first
+    or last position (and a read planted nowhere sharing none); a window
+    no task names (no rank, no slice); tasks of one row; reads of 0-7
+    bytes, which hold no 8-mer; reads past 256 bytes, whose rows the test
+    pass stages in pieces, sharing an 8-mer only near the end of either
+    orientation, or none."""
+    made, resident, pairs, rows_per_task = _kb_edge_inputs(case, layout)
+    order, args, schedule = realign.screen_inputs(
+        resident, pairs, rows_per_task=rows_per_task)
+    got, _ = _kb_emulate(harness, args, schedule)
+    plain = realign.kmer_bitmap_screen_plain(*args).numpy()
+    np.testing.assert_array_equal(got, plain)
+    verdict = np.zeros(len(pairs), bool)
+    verdict[order] = plain
+    contig, spans, seqs, _ = made
+    np.testing.assert_array_equal(verdict, jax_realign.screen_pairs(
+        [seqs[i] for i in pairs],
+        [contig[spans[i][0]:spans[i][0] + spans[i][1]] for i in pairs]))
+    if case in _SLICE_EDGE_CASES:
+        assert verdict[:-1].all() and not verdict[-1]
+        assert len(schedule.slices) == -(-(made[1][0][1] - 7)
+                                         // realign.KB_SLICE)
+    elif case == "unnamed_window":
+        assert len(schedule.rank_window) == len(resident.win_len) - 1
+        assert 1 not in schedule.rank_window.tolist()
+        assert verdict.any() and not verdict.all()
+    elif case == "long_reads":
+        assert args[0].shape[1] > 32 * 16 // 2
+        np.testing.assert_array_equal(verdict, np.arange(len(pairs)) % 4 != 0)
+    elif case == "one_row_tasks":
+        assert len(args[5]) == len(pairs)
+        assert verdict.any() and not verdict.all()
+    else:
+        lengths = np.array([len(seqs[i]) for i in pairs])
+        assert not verdict[lengths < 8].any()
+        assert verdict[(lengths == 8) & (np.arange(len(pairs)) % 2 == 0)].all()
+
+
+def test_kb_code16_codes_every_byte(harness):
+    """kb_code16 (four bytes a word at once) gives each of the 256 byte
+    values, at each of a group's 16 places, aw_kmer_code's code (T 0, G 1,
+    C 2, any other byte 3) in bits 2 (15 - j) and, for byte 0 alone, the
+    PAD mark in bit 15 - j."""
+    rng = np.random.default_rng(101)
+    groups = np.concatenate([
+        np.arange(256, dtype=np.uint8).reshape(16, 16),
+        np.arange(256, dtype=np.uint8).reshape(16, 16).T,
+        rng.choice(np.frombuffer(b"ACGTN\x00acgt", np.uint8), (64, 16)),
+        rng.integers(0, 256, (64, 16)).astype(np.uint8)])
+    out = np.zeros((len(groups), 2), np.uint32)
+    harness.kb_code_groups(_ptr(np.ascontiguousarray(groups)), _ptr(out),
+                           len(groups))
+    code = np.full(256, 3, np.uint64)
+    code[[ord("T"), ord("G"), ord("C")]] = [0, 1, 2]
+    shifts = np.arange(15, -1, -1, dtype=np.uint64)
+    want_codes = (code[groups] << (2 * shifts)).sum(axis=1)
+    want_pads = ((groups == 0).astype(np.uint64) << shifts).sum(axis=1)
+    np.testing.assert_array_equal(out[:, 0], want_codes)
+    np.testing.assert_array_equal(out[:, 1], want_pads)
+
+
+def test_kb_homopolymer_names_the_four_runs(harness):
+    """kb_homopolymer holds for the 8-mers of one base 8 times (TTTTTTTT,
+    GGGGGGGG, CCCCCCCC and the "other" code's, which N and A runs set) and
+    for no other of the 65,536."""
+    hits = [kmer for kmer in range(1 << 16) if harness.kb_homopolymer_of(kmer)]
+    assert hits == [0, 0x5555, 0xAAAA, 0xFFFF]
+
+
+def test_kb_constants_match_the_header(harness):
+    """kernels.KB_SLICE and KB_WORDS, and realign's default slice, are the
+    header's; a slice and a stage are whole 16-byte groups."""
+    from arriba_tpu_torch import kernels
+
+    got = np.zeros(4, np.int32)
+    harness.kb_constants(_ptr(got))
+    slice_len, words, group, stage = got.tolist()
+    assert (kernels.KB_SLICE, kernels.KB_WORDS) == (slice_len, words)
+    assert realign.KB_SLICE == slice_len and slice_len % group == 0
+    assert words * 32 == 4 ** 8 and group == 16 and stage == 32
 
 
 @pytest.mark.parametrize("layout", ["packed", "contig"])

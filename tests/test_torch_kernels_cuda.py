@@ -5,6 +5,7 @@ that need a CUDA device are marked ``cuda`` and skip without one;
 ``python3 chip_smoke.py`` runs the kernel comparison at the main path's
 shapes."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -655,6 +656,8 @@ _KB_ARGS = (torch.zeros(4, 16, dtype=torch.uint8),
             torch.zeros(1, dtype=torch.int32),
             torch.zeros(3, dtype=torch.int32),
             torch.tensor([[0, 0, 3]], dtype=torch.int32))
+_KB_SCHEDULE = realign.screen_schedule(np.array([[0, 0, 3]]),
+                                       np.array([16]), device="cpu")
 _AWI_ARGS = (torch.zeros(2, 64, dtype=torch.uint8),
              torch.zeros(64, dtype=torch.uint8),
              torch.zeros(3, 2, dtype=torch.int64),
@@ -683,9 +686,9 @@ _AWI_ARGS = (torch.zeros(2, 64, dtype=torch.uint8),
     ("mxu_kmer_screen", _MK_ARGS + (12,)),
     ("launch_mxu_kmer_screen",
      _MK_ARGS + (torch.zeros(2, dtype=torch.uint8), 3)),
-    ("kmer_bitmap_screen", _KB_ARGS),
+    ("kmer_bitmap_screen", _KB_ARGS + (_KB_SCHEDULE,)),
     ("launch_kmer_bitmap_screen",
-     _KB_ARGS + (torch.zeros(3, dtype=torch.uint8),)),
+     _KB_ARGS + (torch.zeros(3, dtype=torch.uint8), _KB_SCHEDULE)),
     ("accept_wavefront_indexed", _AWI_ARGS + (8192,)),
     ("launch_accept_wavefront_indexed",
      _AWI_ARGS + (torch.zeros(3, dtype=torch.int32), 8192)),
@@ -719,26 +722,59 @@ def _resident_cuda_cases():
 @pytest.mark.parametrize("case", ["main", "tail", "short", "reads_n",
                                   "chunk_edges", "shared"])
 def test_kmer_bitmap_screen_kernel_matches_plain(cuda, case):
-    """K5 on the resident tables (packed by resident_pairs, and the contig
-    itself as the window table) against its plain version, one launch a
-    call."""
+    """K5's two passes on the resident tables (packed by resident_pairs,
+    and the contig itself as the window table), in tasks of 64 rows at the
+    default slice length and of 256 rows at 48 positions a slice, against
+    its plain version, one count a call."""
     import numpy as np
 
     from chip_smoke import resident_layouts
 
     made = _resident_cuda_cases()[case]()
     for layout, resident in resident_layouts(made, cuda).items():
-        order, args = realign.screen_inputs(
-            resident, np.arange(len(resident.pair_read)))
+        for rows_per_task, slice_len in ((64, realign.KB_SLICE), (256, 48)):
+            order, args, schedule = realign.screen_inputs(
+                resident, np.arange(len(resident.pair_read)),
+                rows_per_task=rows_per_task, slice_len=slice_len)
+            before = kernels.launch_counts["kmer_bitmap_screen"]
+            got = realign.kmer_bitmap_screen(*args, schedule=schedule)
+            assert kernels.launch_counts["kmer_bitmap_screen"] == before + 1
+            assert torch.equal(got, realign.kmer_bitmap_screen_plain(
+                *args)), (layout, slice_len)
+            if case == "tail":
+                verdict = np.zeros(len(order), bool)
+                verdict[order] = got.cpu().numpy()
+                assert not verdict[0::2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slice_plus_7", "slice_plus_8",
+                                  "two_slices_plus_6", "unnamed_window",
+                                  "one_row_tasks", "short_reads",
+                                  "long_reads"])
+def test_kmer_bitmap_screen_kernel_edges(cuda, case):
+    """K5 on the edges of its schedule (chip_smoke.kb_edge_case: windows at
+    a slice's edges with 8-mers planted across them, a window no task
+    names, tasks of one row, reads of 0-8 bytes, reads past 256 bytes)
+    against its plain version, with the schedule given and made by
+    realign.kmer_bitmap_screen, one count a call each."""
+    import numpy as np
+
+    from chip_smoke import kb_edge_case
+
+    (contig, spans, reads, _), left_out, rows_per_task = kb_edge_case(case)
+    resident = realign.resident_pairs(
+        reads, [contig[a:a + n] for a, n in spans], cuda)
+    pairs = np.flatnonzero(resident.pair_window != (
+        -1 if left_out is None else left_out))
+    _, args, schedule = realign.screen_inputs(resident, pairs,
+                                              rows_per_task=rows_per_task)
+    want = realign.kmer_bitmap_screen_plain(*args)
+    for given in (schedule, None):
         before = kernels.launch_counts["kmer_bitmap_screen"]
-        got = realign.kmer_bitmap_screen(*args)
+        got = realign.kmer_bitmap_screen(*args, schedule=given)
         assert kernels.launch_counts["kmer_bitmap_screen"] == before + 1
-        assert torch.equal(got, realign.kmer_bitmap_screen_plain(*args)), \
-            layout
-        if case == "tail":
-            verdict = np.zeros(len(order), bool)
-            verdict[order] = got.cpu().numpy()
-            assert not verdict[0::2].any()
+        assert torch.equal(got, want), given is None
 
 
 @pytest.mark.cuda

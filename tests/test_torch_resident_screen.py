@@ -232,6 +232,41 @@ def test_screen_tasks_cut_each_window(rows_per_task):
     assert realign.screen_tasks(row_window[:0])[1].shape == (0, 3)
 
 
+@pytest.mark.parametrize("slice_len", [16, 48, realign.KB_SLICE])
+@pytest.mark.parametrize("case", ["main", "short", "reads_n", "shared"])
+def test_screen_schedule_covers_each_position_once(case, slice_len):
+    """screen_inputs' schedule (screen_schedule), on a case's pairs less
+    those of one window: the ranks are compact (0, 1, ... over the windows
+    the tasks name, in increasing order, and no other), each task names its
+    window's rank, and every position [0, len - 7) of every window in use
+    is in exactly one slice of at most slice_len positions, no slice
+    empty; the schedule's bytes count as uploaded rows."""
+    made = _CASES[case]()
+    resident = realign.resident_pairs(*_views(made)[:2], CPU)
+    pairs = np.flatnonzero(resident.pair_window
+                           != resident.pair_window[len(made[2]) // 2])
+    rows_before = resident.uploaded["rows"]
+    order, args, schedule = realign.screen_inputs(resident, pairs,
+                                                  slice_len=slice_len)
+    tasks = args[5].numpy()
+    rank_window = schedule.rank_window.numpy()
+    used = np.unique(resident.pair_window[pairs])
+    np.testing.assert_array_equal(rank_window, used)
+    np.testing.assert_array_equal(rank_window[schedule.task_rank.numpy()],
+                                  tasks[:, 0])
+    assert schedule.slice_len == slice_len
+    covered = [np.zeros(max(int(resident.win_len[w]) - 7, 0), int)
+               for w in rank_window]
+    for rank, first in schedule.slices.numpy():
+        n_pos = len(covered[rank])
+        assert first % slice_len == 0 and first < n_pos
+        covered[rank][first:first + slice_len] += 1
+    assert all((c == 1).all() for c in covered)
+    assert resident.uploaded["rows"] - rows_before == (
+        sum(x.numel() * x.element_size() for x in args[2:])
+        + schedule.nbytes())
+
+
 def test_resident_tables_hold_each_window_and_read_once():
     """resident_pairs copies each distinct window (views of one buffer at
     one offset and length) and each distinct read once: windows from
@@ -341,15 +376,20 @@ class _OnTheCard:
 
 
 def _card_args(name):
-    """A launch's arguments, out included, as tensors on the card."""
+    """A launch's arguments, out included, as tensors on the card (K5's
+    with its schedule: the window's 9 positions in one slice)."""
     z = torch.zeros
     if name == "kmer_bitmap_screen":
+        tasks = torch.tensor([[0, 0, 3]], dtype=torch.int32)
+        lengths = torch.tensor([16], dtype=torch.int32)
+        schedule = realign.screen_schedule(tasks.numpy(), lengths.numpy(),
+                                           device=CPU)
+        for field in ("rank_window", "task_rank", "slices"):
+            setattr(schedule, field, _OnTheCard(getattr(schedule, field)))
         return [_OnTheCard(x) for x in (
             z(4, 16, dtype=torch.uint8), z(64, dtype=torch.uint8),
-            z(1, dtype=torch.int64), z(1, dtype=torch.int32),
-            z(3, dtype=torch.int32),
-            torch.tensor([[0, 0, 3]], dtype=torch.int32),
-            z(3, dtype=torch.uint8))]
+            z(1, dtype=torch.int64), lengths, z(3, dtype=torch.int32), tasks,
+            z(3, dtype=torch.uint8))] + [schedule]
     return [_OnTheCard(x) for x in (
         z(2, 64, dtype=torch.uint8), z(64, dtype=torch.uint8),
         z(3, 2, dtype=torch.int64), z(3, 5, dtype=torch.int32),
@@ -361,23 +401,36 @@ def _card_args(name):
 @pytest.mark.parametrize("failure", ["launch", "build"])
 def test_kernel_failures_raise(monkeypatch, tmp_path, name, failure):
     """K5 and K1's indexed entry on the card launch or raise: a launch that
-    returns a CUDA error, or a build that nvcc fails, raises RuntimeError,
-    counts no launch, and gives no verdict (nothing falls back to the plain
+    returns a CUDA error (for K5, of either of its two passes, the other
+    launching), or a build that nvcc fails, raises RuntimeError, counts no
+    launch, and gives no verdict (nothing falls back to the plain
     version)."""
     class Stream:
         cuda_stream = 0
 
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
-    if failure == "launch":
-        monkeypatch.setattr(build, "load", lambda entry: (
-            lambda *args: 700, lambda code: "an illegal memory access"))
-        match = "failed to launch"
-    else:
+    if failure == "build":
         monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
         monkeypatch.setattr(build, "nvcc", lambda: "false")
         monkeypatch.setattr(build, "_loaded", {})
-        match = "nvcc failed"
-    before = dict(kernels.launch_counts)
-    with pytest.raises(RuntimeError, match=match):
-        getattr(kernels, f"launch_{name}")(*_card_args(name))
-    assert kernels.launch_counts == before
+        failings = [None]
+    else:
+        failings = (["kmer_bitmap_build", "kmer_bitmap_test"]
+                    if name == "kmer_bitmap_screen" else [name])
+    for failing in failings:
+        launched = []
+        if failure == "launch":
+            def load(entry, failing=failing, launched=launched):
+                def launch(*args):
+                    launched.append(entry)
+                    return 700 if entry == failing else 0
+                return launch, lambda code: "an illegal memory access"
+
+            monkeypatch.setattr(build, "load", load)
+        before = dict(kernels.launch_counts)
+        with pytest.raises(RuntimeError, match="failed to launch"
+                           if failure == "launch" else "nvcc failed"):
+            getattr(kernels, f"launch_{name}")(*_card_args(name))
+        assert kernels.launch_counts == before
+        if failure == "launch":
+            assert launched[-1] == failing
