@@ -1,0 +1,14 @@
+"""The benchmark's own tests: `python -m pytest benchmark/tests -q` from
+the checkout's root. They import neither JAX nor the JAX package."""
+
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skipped without one)")
