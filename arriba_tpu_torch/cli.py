@@ -287,27 +287,31 @@ def main(argv: List[str] = None) -> int:
     import resource
     import time
 
-    from .pipeline import log, run
+    from . import pipeline, trace
 
-    start_time = time.time()
-    log("Launching Arriba-TPU")
-    options = parse_arguments(sys.argv[1:] if argv is None else argv)
-    try:
-        run(options)
-    except RuntimeError as error:
-        # crash() semantics of the reference (common.hpp:330)
-        print(f"ERROR: {error}", file=sys.stderr)
-        return 1
-    log("Freeing resources")
-    elapsed = time.time() - start_time
-    usage = resource.getrusage(resource.RUSAGE_SELF)
-    cpu = usage.ru_utime + usage.ru_stime
-    peak_gb = usage.ru_maxrss / (1024.0 * 1024)
+    # one root span a call while the stage log is on (trace.py)
+    with trace.sample(pipeline._STAGE_TIMES):
+        log = pipeline.log
+        start_time = time.time()
+        log("Launching Arriba-TPU")
+        options = parse_arguments(sys.argv[1:] if argv is None else argv)
+        try:
+            pipeline.run(options)
+        except RuntimeError as error:
+            # crash() semantics of the reference (common.hpp:330)
+            print(f"ERROR: {error}", file=sys.stderr)
+            return 1
+        log("Freeing resources")
+        elapsed = time.time() - start_time
+        usage = resource.getrusage(resource.RUSAGE_SELF)
+        cpu = usage.ru_utime + usage.ru_stime
+        peak_gb = usage.ru_maxrss / (1024.0 * 1024)
 
-    def hhmmss(seconds: float) -> str:
-        seconds = int(seconds)
-        return f"{seconds // 3600}:{seconds % 3600 // 60:02}:{seconds % 60:02}"
+        def hhmmss(seconds: float) -> str:
+            seconds = int(seconds)
+            return (f"{seconds // 3600}:{seconds % 3600 // 60:02}:"
+                    f"{seconds % 60:02}")
 
-    log(f"Done (elapsed time={hhmmss(elapsed)}, CPU time={hhmmss(cpu)}, "
-        f"peak memory={peak_gb:.3g}gb)")
-    return 0
+        log(f"Done (elapsed time={hhmmss(elapsed)}, CPU time={hhmmss(cpu)}, "
+            f"peak memory={peak_gb:.3g}gb)")
+        return 0

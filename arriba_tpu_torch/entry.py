@@ -24,6 +24,7 @@ import numpy as np
 def entry(device=None):
     import torch
 
+    from . import trace
     from .ops.encode import random_read_batch
     from .ops.readfilters import read_filter_step
 
@@ -38,7 +39,7 @@ def entry(device=None):
         return read_filter_step(bases, ref, match_mask, length, aligned_start,
                                 aligned_end, extra_mismatches)
 
-    example_args = tuple(torch.from_numpy(x).to(device) for x in (
+    example_args = tuple(trace.upload(x, device) for x in (
         batch.bases, batch.ref, batch.match_mask, batch.length,
         batch.aligned_start, batch.aligned_end)) + (
         torch.zeros(batch.bases.shape[0], dtype=torch.int32, device=device),)

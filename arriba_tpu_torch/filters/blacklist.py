@@ -16,6 +16,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import sys
 
+from .. import trace
 from ..annotation.tables import GeneTable
 from ..constants import (DOWNSTREAM, FILTER_BLACKLIST, FILTER_MIN_SUPPORT,
                          FILTER_NONE, FILTER_RELATIVE_SUPPORT, FORWARD,
@@ -290,17 +291,15 @@ def _device_blacklist_triage(candidates, items, genes: GeneTable,
             q_hi.append(hi)
             lengths[contig] = max(lengths[contig], hi + B)
     offsets = contig_offsets(lengths)
-    import torch
-
     device = torch_device()
     starts, prefix_max_end = build_range_index(
         np.asarray(r_contig), np.asarray(r_lo), np.asarray(r_hi), offsets,
         device)
     base = offsets[np.asarray(q_contig, np.int64)]
-    q_global_lo = torch.from_numpy(np.asarray(q_lo, np.int64) + base)
-    q_global_hi = torch.from_numpy(np.asarray(q_hi, np.int64) + base)
-    hits = query_intervals(starts, prefix_max_end, q_global_lo.to(device),
-                           q_global_hi.to(device)).cpu().numpy()
+    hits = query_intervals(
+        starts, prefix_max_end,
+        trace.upload(np.asarray(q_lo, np.int64) + base, device),
+        trace.upload(np.asarray(q_hi, np.int64) + base, device)).cpu().numpy()
     return hits.reshape(len(candidates), 4).any(axis=1)
 
 

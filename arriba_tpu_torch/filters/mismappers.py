@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..annotation.index import IntervalIndex
 from ..annotation.queries import is_breakpoint_spliced
 from ..annotation.tables import ExonTable, GeneTable
@@ -526,6 +527,7 @@ def device_screen(fusions: Fusions, chimeric_alignments: ChimericAlignments,
     keys, seqs, windows, window_ids, min_scores, accept_ok = \
         collect_screen_tasks(fusions, chimeric_alignments, assembly, genes,
                              max_mate_gap, kmer_indices=kmer_indices)
+    trace.count("screen.pairs", len(keys))
     if not keys:
         return {}
     # the distinct windows and reads go to the device once, for both steps
@@ -537,6 +539,9 @@ def device_screen(fusions: Fusions, chimeric_alignments: ChimericAlignments,
         accepted = accept_resident(resident, rows,
                                    np.asarray(min_scores, np.int64)[rows])
         verdict[rows[accepted]] = SCREEN_ACCEPT
+    if trace.active():
+        trace.count("screen.undecided",
+                    np.count_nonzero(verdict == SCREEN_UNDECIDED))
     return dict(zip(keys, verdict.tolist()))
 
 
@@ -562,65 +567,68 @@ def filter_mismappers(fusions: Fusions, chimeric_alignments: ChimericAlignments,
         return lambda gene: screen_map.get((name, kind, int(gene)),
                                            SCREEN_UNDECIDED)
 
-    for f in fusions.values():
-        if f.filter != FILTER_NONE:
-            continue
-
-        same_contig = f.contig1 == f.contig2
-
-        # re-align split reads
-        for name in f.split_read1_list + f.split_read2_list:
-            mates = chimeric_alignments[name]
-            if mates.filter != FILTER_NONE:
+    # the host recursion: align() on every pair the screen left UNDECIDED
+    # (on every pair without the screen)
+    with trace.span("screen.host_recursion"):
+        for f in fusions.values():
+            if f.filter != FILTER_NONE:
                 continue
-            split_read = mates[SPLIT_READ]
-            supplementary = mates[SUPPLEMENTARY]
-            mate1 = mates[MATE1]
 
-            if split_read.strand == FORWARD:
-                clipped_seq = split_read.sequence[:split_read.preclipping()]
-                mate1_seq = mate1.sequence[mate1.preclipping():]
-            else:
-                clipped_seq = split_read.sequence[len(split_read.sequence)
-                                                  - split_read.postclipping():]
-                mate1_seq = mate1.sequence[:len(mate1.sequence) - mate1.postclipping()]
+            same_contig = f.contig1 == f.contig2
 
-            if (extend_split_read(split_read, assembly, min_extended_align_fraction)
-                    or align_both_strands(clipped_seq, len(split_read.sequence), max_mate_gap,
-                                          same_contig, supplementary.start, supplementary.end,
-                                          kmer_indices, assembly, genes, exons, exon_index,
-                                          splice_sites_by_gene, split_read.genes, kmer_length,
-                                          min_align_fraction, _screen(name, 0))
-                    or align_both_strands(mate1_seq, len(mate1.sequence), max_mate_gap,
-                                          same_contig, mate1.start, mate1.end, kmer_indices,
-                                          assembly, genes, exons, exon_index,
-                                          splice_sites_by_gene, supplementary.genes,
-                                          kmer_length, min_align_fraction,
-                                          _screen(name, 1))):
-                mates.filter = FILTER_MISMAPPERS
+            # re-align split reads
+            for name in f.split_read1_list + f.split_read2_list:
+                mates = chimeric_alignments[name]
+                if mates.filter != FILTER_NONE:
+                    continue
+                split_read = mates[SPLIT_READ]
+                supplementary = mates[SUPPLEMENTARY]
+                mate1 = mates[MATE1]
 
-        # re-align discordant mates
-        for name in f.discordant_mate_list:
-            mates = chimeric_alignments[name]
-            if mates.filter != FILTER_NONE:
-                continue
-            mate1, mate2 = mates[MATE1], mates[MATE2]
-            clipped_fraction1 = float(mate1.preclipping() + mate1.postclipping()) / len(mate1.sequence)
-            clipped_fraction2 = float(mate2.preclipping() + mate2.postclipping()) / len(mate2.sequence)
-            if (align_both_strands(mate1.sequence, len(mate1.sequence), max_mate_gap,
-                                   same_contig, mate1.start, mate1.end, kmer_indices, assembly,
-                                   genes, exons, exon_index, splice_sites_by_gene, mate2.genes,
-                                   kmer_length,
-                                   min(min_align_fraction, min_align_fraction * (1 - clipped_fraction1)),
-                                   _screen(name, 2))
-                    or align_both_strands(mate2.sequence, len(mate2.sequence), max_mate_gap,
-                                          same_contig, mate2.start, mate2.end, kmer_indices,
-                                          assembly, genes, exons, exon_index,
-                                          splice_sites_by_gene, mate1.genes, kmer_length,
-                                          min(min_align_fraction,
-                                              min_align_fraction * (1 - clipped_fraction2)),
-                                          _screen(name, 3))):
-                mates.filter = FILTER_MISMAPPERS
+                if split_read.strand == FORWARD:
+                    clipped_seq = split_read.sequence[:split_read.preclipping()]
+                    mate1_seq = mate1.sequence[mate1.preclipping():]
+                else:
+                    clipped_seq = split_read.sequence[len(split_read.sequence)
+                                                      - split_read.postclipping():]
+                    mate1_seq = mate1.sequence[:len(mate1.sequence) - mate1.postclipping()]
+
+                if (extend_split_read(split_read, assembly, min_extended_align_fraction)
+                        or align_both_strands(clipped_seq, len(split_read.sequence), max_mate_gap,
+                                              same_contig, supplementary.start, supplementary.end,
+                                              kmer_indices, assembly, genes, exons, exon_index,
+                                              splice_sites_by_gene, split_read.genes, kmer_length,
+                                              min_align_fraction, _screen(name, 0))
+                        or align_both_strands(mate1_seq, len(mate1.sequence), max_mate_gap,
+                                              same_contig, mate1.start, mate1.end, kmer_indices,
+                                              assembly, genes, exons, exon_index,
+                                              splice_sites_by_gene, supplementary.genes,
+                                              kmer_length, min_align_fraction,
+                                              _screen(name, 1))):
+                    mates.filter = FILTER_MISMAPPERS
+
+            # re-align discordant mates
+            for name in f.discordant_mate_list:
+                mates = chimeric_alignments[name]
+                if mates.filter != FILTER_NONE:
+                    continue
+                mate1, mate2 = mates[MATE1], mates[MATE2]
+                clipped_fraction1 = float(mate1.preclipping() + mate1.postclipping()) / len(mate1.sequence)
+                clipped_fraction2 = float(mate2.preclipping() + mate2.postclipping()) / len(mate2.sequence)
+                if (align_both_strands(mate1.sequence, len(mate1.sequence), max_mate_gap,
+                                       same_contig, mate1.start, mate1.end, kmer_indices, assembly,
+                                       genes, exons, exon_index, splice_sites_by_gene, mate2.genes,
+                                       kmer_length,
+                                       min(min_align_fraction, min_align_fraction * (1 - clipped_fraction1)),
+                                       _screen(name, 2))
+                        or align_both_strands(mate2.sequence, len(mate2.sequence), max_mate_gap,
+                                              same_contig, mate2.start, mate2.end, kmer_indices,
+                                              assembly, genes, exons, exon_index,
+                                              splice_sites_by_gene, mate1.genes, kmer_length,
+                                              min(min_align_fraction,
+                                                  min_align_fraction * (1 - clipped_fraction2)),
+                                              _screen(name, 3))):
+                    mates.filter = FILTER_MISMAPPERS
 
     # discard all fusions with more than max_mismapper_fraction mismappers
     remaining = 0

@@ -34,6 +34,7 @@ from ..constants import (FILTER_BLACKLIST, FILTER_END_TO_END,
                          FILTER_RELATIVE_SUPPORT, FILTER_SELECT_BEST,
                          FILTER_SHORT_ANCHOR, FILTER_HOMOLOGS,
                          FILTER_MISMAPPERS)
+from .. import trace
 from ..ingest.stats import fragment_length_stats
 from . import read_level
 
@@ -69,7 +70,8 @@ def _native_module():
 
 class ReadLevelCascade:
     """Facade the pipeline drives stage-by-stage. When the native engine is
-    available, __init__ runs stages 1-5 + gap collection in one call, and
+    available, the first stage accessor runs stages 1-5 + gap collection in
+    one call (under the pipeline's first read-level stage line), and
     estimate_fragment_length() triggers stages 6-14; each accessor then just
     returns the precomputed counter. Otherwise every method delegates to the
     Python implementation."""
@@ -82,16 +84,25 @@ class ReadLevelCascade:
         self.genes = genes
         self.exons = exons
         self.exon_index = exon_index
-        self._native = _native_module()
+        self._engine = _native_module()
+        self._begun = False
         self._counts = {}
         self._gaps: Optional[np.ndarray] = None
         self._fragments = None
-        if self._native is not None:
-            try:
-                self._begin()
-            except Exception:
-                # fall back cleanly to the Python implementations
-                self._native = None
+
+    @property
+    def _native(self):
+        """The native engine, once stages 1-5 have run on it (at the first
+        access); None for the Python implementations."""
+        if not self._begun:
+            self._begun = True
+            if self._engine is not None:
+                try:
+                    self._begin()
+                except Exception:
+                    # fall back cleanly to the Python implementations
+                    self._engine = None
+        return self._engine
 
     # -- native driver ------------------------------------------------------
 
@@ -145,14 +156,15 @@ class ReadLevelCascade:
         # re-bind so native splice tests cover every gene row (the cascade's
         # homopolymer filter and find_fusions index genes by row id)
         from ..annotation.native_annotate import bind_annotation_engine
-        bind_annotation_engine(self._native, self.exon_index, self.exons, genes)
+        bind_annotation_engine(self._engine, self.exon_index, self.exons, genes)
 
         if getattr(ca, "is_lazy_native", False):
             # retained mode: the fragments already live in the native
             # extraction store — bind context only, no marshal
-            counts_b, gaps_b, read_length_sum, read_length_count = \
-                self._native.cascade_begin_retained(*self._context_args(),
-                                                    _STAGE_FILTER_IDS)
+            with trace.span("read_cascade.begin"):
+                counts_b, gaps_b, read_length_sum, read_length_count = \
+                    self._engine.cascade_begin_retained(
+                        *self._context_args(), _STAGE_FILTER_IDS)
             counts = np.frombuffer(counts_b, np.int64)
             for bit, name in enumerate(_STAGES[:5]):
                 self._counts[name] = int(counts[bit])
@@ -257,20 +269,22 @@ class ReadLevelCascade:
                   int(options.homopolymer_length),
                   self._enabled_mask())
 
-        counts_b, gaps_b, read_length_sum, read_length_count = \
-            self._native.cascade_begin(
-                frag_offsets_b, contig_b, start_b,
-                end_b, strand_b, pred_strand_b,
-                pred_ambig_b, exonic_b, cigar_offsets_b,
-                cigar_words_b, seq_offsets.tobytes(),
-                "".join(seq_parts).encode("latin-1"), genes_offsets.tobytes(),
-                b"".join(gene_parts), frag_flags.tobytes(),
-                frag_filter.tobytes(), interesting, viral,
-                mapped_viral.tobytes(),
-                np.ascontiguousarray(genes.start, np.int64).tobytes(),
-                np.ascontiguousarray(genes.end, np.int64).tobytes(),
-                np.ascontiguousarray(genes.is_dummy, np.uint8).tobytes(),
-                assembly_list, coverage_list, params, _STAGE_FILTER_IDS)
+        with trace.span("read_cascade.begin"):
+            counts_b, gaps_b, read_length_sum, read_length_count = \
+                self._engine.cascade_begin(
+                    frag_offsets_b, contig_b, start_b,
+                    end_b, strand_b, pred_strand_b,
+                    pred_ambig_b, exonic_b, cigar_offsets_b,
+                    cigar_words_b, seq_offsets.tobytes(),
+                    "".join(seq_parts).encode("latin-1"),
+                    genes_offsets.tobytes(),
+                    b"".join(gene_parts), frag_flags.tobytes(),
+                    frag_filter.tobytes(), interesting, viral,
+                    mapped_viral.tobytes(),
+                    np.ascontiguousarray(genes.start, np.int64).tobytes(),
+                    np.ascontiguousarray(genes.end, np.int64).tobytes(),
+                    np.ascontiguousarray(genes.is_dummy, np.uint8).tobytes(),
+                    assembly_list, coverage_list, params, _STAGE_FILTER_IDS)
 
         counts = np.frombuffer(counts_b, np.int64)
         for bit, name in enumerate(_STAGES[:5]):
@@ -288,11 +302,12 @@ class ReadLevelCascade:
         from ..device import offload_enabled
         hybrid_device = (offload_enabled()
                          and self.options.filters["low_entropy"])
-        counts_b, filters_b = self._native.cascade_finish(
-            int(state.max_mate_gap), 0.01,
-            float(options.mismatch_pvalue_cutoff), int(genome_size),
-            float(options.max_kmer_content), 3, int(options.max_itd_length),
-            1 if hybrid_device else 0)
+        with trace.span("read_cascade.finish"):
+            counts_b, filters_b = self._native.cascade_finish(
+                int(state.max_mate_gap), 0.01,
+                float(options.mismatch_pvalue_cutoff), int(genome_size),
+                float(options.max_kmer_content), 3,
+                int(options.max_itd_length), 1 if hybrid_device else 0)
         counts = np.frombuffer(counts_b, np.int64)
         for bit, name in enumerate(_STAGES[5:]):
             self._counts[name] = int(counts[bit])
@@ -303,6 +318,7 @@ class ReadLevelCascade:
             for mates, filter_id in zip(self._fragments, filters):
                 mates.filter = filter_id
 
+    @trace.spanned("k2.offload")
     def _device_low_entropy(self) -> int:
         """Hybrid stage 13: the native engine exports the exact rows its
         scan would visit; the batched recurrence decides them on the device

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..annotation.index import IntervalIndex, combine_annotations
 from ..annotation.queries import (complement_strand_if,
                                   get_boundaries_of_biggest_gene)
@@ -1140,35 +1141,38 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                     _os.environ.get("ARRIBA_TPU_TORCH_SHARDS", "0") or "0")
             except ValueError:
                 pass
-            if (n_shard_procs > 1 and retain and not stream_native
-                    and _path_is_plain_sam(path)):
-                try:
-                    result = _scan_sam_sharded(
-                        path, name_to_tid, boundaries,
-                        bytes(interesting_per_tid), bytes(viral_per_tid),
-                        planes, external_duplicate_marking, threads,
-                        extract_tables, n_shard_procs)
-                except Exception as error:  # noqa: BLE001
-                    # a worker crash must not abort the run: the unsharded
-                    # scan is byte-identical by construction. Coverage
-                    # planes may hold partial worker sums — rebuild them.
-                    print(f"WARNING: sharded ingest failed ({error}); "
-                          f"falling back to the single-process scan "
-                          f"(output is unaffected)", file=sys.stderr)
-                    for plane in planes:
-                        if plane is not None:
-                            for arr in plane:
-                                arr[:] = 0
+            with trace.span("ingest.scan"):
+                if (n_shard_procs > 1 and retain and not stream_native
+                        and _path_is_plain_sam(path)):
+                    try:
+                        result = _scan_sam_sharded(
+                            path, name_to_tid, boundaries,
+                            bytes(interesting_per_tid), bytes(viral_per_tid),
+                            planes, external_duplicate_marking, threads,
+                            extract_tables, n_shard_procs)
+                    except Exception as error:  # noqa: BLE001
+                        # a worker crash must not abort the run: the
+                        # unsharded scan is byte-identical by construction.
+                        # Coverage planes may hold partial worker sums —
+                        # rebuild them.
+                        print(f"WARNING: sharded ingest failed ({error}); "
+                              f"falling back to the single-process scan "
+                              f"(output is unaffected)", file=sys.stderr)
+                        for plane in planes:
+                            if plane is not None:
+                                for arr in plane:
+                                    arr[:] = 0
+                        result = _native.scan_sam(
+                            path, name_to_tid, boundaries,
+                            bytes(interesting_per_tid), bytes(viral_per_tid),
+                            planes, external_duplicate_marking, threads,
+                            extract_tables, 1 if stream_native else 0)
+                else:
                     result = _native.scan_sam(
                         path, name_to_tid, boundaries,
                         bytes(interesting_per_tid), bytes(viral_per_tid),
                         planes, external_duplicate_marking, threads,
                         extract_tables, 1 if stream_native else 0)
-            else:
-                result = _native.scan_sam(
-                    path, name_to_tid, boundaries, bytes(interesting_per_tid),
-                    bytes(viral_per_tid), planes, external_duplicate_marking,
-                    threads, extract_tables, 1 if stream_native else 0)
             if retain:
                 (_header_bytes, total_mapped, viral_counts, _n_records,
                  (missing_hi_tag, malformed_count, no_chimeric_flag),
@@ -1204,11 +1208,13 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                 return retained_result, total_mapped
             return len(chimeric_alignments), total_mapped
 
-        _, forwarded, native_boring_mapped, viral_counts, _n_records = \
-            _native.scan_sam(path, name_to_tid, boundaries,
-                             bytes(interesting_per_tid), bytes(viral_per_tid),
-                             planes, external_duplicate_marking, threads,
-                             None, 1 if stream_native else 0)
+        with trace.span("ingest.scan"):
+            _, forwarded, native_boring_mapped, viral_counts, _n_records = \
+                _native.scan_sam(path, name_to_tid, boundaries,
+                                 bytes(interesting_per_tid),
+                                 bytes(viral_per_tid), planes,
+                                 external_duplicate_marking, threads, None,
+                                 1 if stream_native else 0)
         for tid, count in enumerate(viral_counts):
             mapped_viral_reads_by_contig[tid_to_contig[tid]] += count
         def _parse_forwarded():

@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def point_query_spans(boundaries: torch.Tensor, offsets: torch.Tensor,
                       positions: torch.Tensor
@@ -81,6 +83,6 @@ def interval_overlap_triage(queries, feature_contig, feature_start,
         feature_contig, feature_start, feature_end, offsets, device)
     base = offsets[q_contig]
     hits = query_intervals(starts, prefix_max_end,
-                           torch.from_numpy(q_lo + base).to(device),
-                           torch.from_numpy(q_hi + base).to(device))
+                           trace.upload(q_lo + base, device),
+                           trace.upload(q_hi + base, device))
     return hits.cpu().numpy()

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def contig_offsets(contig_lengths) -> np.ndarray:
     """Global-coordinate offset per contig (exclusive prefix sum), int64."""
@@ -38,8 +40,8 @@ def build_range_index(contig, start, end, offsets: np.ndarray, device=None):
     end = np.asarray(end, np.int64) + offsets[contig]
     order = np.argsort(start, kind="stable")
     prefix_max_end = np.maximum.accumulate(end[order]) if len(order) else end
-    return (torch.from_numpy(start[order]).to(device),
-            torch.from_numpy(prefix_max_end).to(device))
+    return (trace.upload(start[order], device),
+            trace.upload(prefix_max_end, device))
 
 
 def query_intervals(sorted_starts, prefix_max_end, query_lo, query_hi):

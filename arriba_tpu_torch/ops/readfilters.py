@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .encode import PAD_CODE
 
 KMER_LENGTH = 3          # filter_low_entropy k (arriba.cpp:408)
@@ -93,10 +94,11 @@ def low_entropy_batch(bases, length, aligned_start1, aligned_end1,
     th = _thresholds(length, aligned_start1, aligned_end1, aligned_start2,
                      aligned_end2, kmer_content)
     return _low_entropy_core(
-        bases, *(torch.as_tensor(x, device=device) for x in (
-            length, aligned_start1, aligned_end1, aligned_start2,
-            aligned_end2)),
-        *(torch.from_numpy(t).to(device) for t in th))
+        bases, *(x.to(device) if torch.is_tensor(x)
+                 else trace.upload(np.asarray(x), device) for x in (
+                     length, aligned_start1, aligned_end1, aligned_start2,
+                     aligned_end2)),
+        *(trace.upload(t, device) for t in th))
 
 
 def pack_codes(codes: np.ndarray) -> np.ndarray:
@@ -147,8 +149,8 @@ def low_entropy_batch_chunked(codes, lengths, a1s, a1e, a2s, a2e,
         meta = np.stack([np.asarray(x, np.int32) for x in (ln, *w, *th)],
                         axis=1)
         flags = _low_entropy_core_packed(
-            torch.from_numpy(pack_codes(c)).to(device), c.shape[1],
-            torch.from_numpy(meta).to(device))
+            trace.upload(pack_codes(c), device), c.shape[1],
+            trace.upload(meta, device))
         out[lo:hi] = flags.cpu().numpy()[:hi - lo]
     return out
 

@@ -52,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import KB_SLICE
 from ..seq import COMPLEMENT_LUT as _COMPLEMENT_LUT
 from .encode import PAD_CODE
@@ -276,6 +277,7 @@ def _view_ids(window_views) -> np.ndarray:
         len(window_views))
 
 
+@trace.spanned("screen.resident_pairs")
 def resident_pairs(read_seqs, window_views, device=None,
                    window_ids=None) -> ResidentPairs:
     """Copy the distinct windows and reads of (read_seqs[i],
@@ -320,8 +322,7 @@ def resident_pairs(read_seqs, window_views, device=None,
     accept[1::2] = _COMPLEMENT_LUT[back]
     return ResidentPairs(
         device, pair_read, pair_window, read_len, win_offset, win_len,
-        torch.from_numpy(host).to(device),
-        torch.from_numpy(accept).to(device),
+        trace.upload(host, device), trace.upload(accept, device),
         {"windows": host.nbytes, "reads": accept.nbytes, "rows": 0})
 
 
@@ -457,7 +458,7 @@ def screen_schedule(tasks: np.ndarray, lengths: np.ndarray,
     first = slice_len * (np.arange(len(slice_rank))
                          - np.repeat(np.cumsum(count) - count, count))
     slices = np.stack([slice_rank, first], 1).astype(np.int32)
-    return ScreenSchedule(*(torch.from_numpy(x).to(_device(device)) for x in (
+    return ScreenSchedule(*(trace.upload(x, _device(device)) for x in (
         rank_window.astype(np.int32), task_rank, slices.reshape(-1, 2))),
         slice_len)
 
@@ -478,7 +479,7 @@ def screen_inputs(resident: ResidentPairs, pairs: np.ndarray,
     schedule = screen_schedule(tasks, lengths, slice_len, device)
     resident.uploaded["rows"] += (sum(x.nbytes for x in host)
                                   + schedule.nbytes())
-    offsets, lengths, row_read, tasks = (torch.from_numpy(x).to(device)
+    offsets, lengths, row_read, tasks = (trace.upload(x, device)
                                          for x in host)
     return order, (resident.accept_reads, resident.table, offsets, lengths,
                    row_read, tasks), schedule
@@ -495,6 +496,7 @@ def screen_launches(resident: ResidentPairs, batch_rows: int = 1 << 20):
         yield pairs[within], args, schedule
 
 
+@trace.spanned("screen.k5")
 def screen_resident(resident: ResidentPairs,
                     batch_rows: int = 1 << 20) -> np.ndarray:
     """[n] bool per pair of resident: the read shares an 8-mer with its
@@ -774,12 +776,13 @@ def accept_launches(resident: ResidentPairs, pairs: np.ndarray, min_scores,
         b = slice(a, a + batch_rows)
         host = (offsets[b], params[b], row_pair[b].astype(np.int32))
         resident.uploaded["rows"] += sum(x.nbytes for x in host)
-        off_d, params_d, pair_d = (torch.from_numpy(x).to(resident.device)
+        off_d, params_d, pair_d = (trace.upload(x, resident.device)
                                    for x in host)
         yield pair_d, (resident.accept_reads, resident.table, off_d,
                        params_d, window_chunk)
 
 
+@trace.spanned("screen.accept")
 def accept_resident(resident: ResidentPairs, pairs, min_scores,
                     window_chunk: int = 8192,
                     batch_rows: int = 1 << 20) -> np.ndarray:

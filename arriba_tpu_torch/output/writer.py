@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..annotation.index import IntervalIndex
 from ..annotation.tables import Annotation, ExonTable, GeneTable, TranscriptTable
 from ..constants import (CIGAR_DEL, CIGAR_DIFF, CIGAR_EQUAL, CIGAR_HARD_CLIP,
@@ -358,7 +359,6 @@ def build_device_pileups(eligible: List[Fusion], ca: ChimericAlignments
     walk in get_sequence_from_pileup iterates keys in sorted order, so
     dict insertion order cannot affect output)."""
     import numpy as np
-    import torch
 
     from ..device import torch_device
     from ..ops.pileup import pileup_histogram
@@ -439,7 +439,7 @@ def build_device_pileups(eligible: List[Fusion], ca: ChimericAlignments
                 cols = np.concatenate([cols, np.full(pad, -1, np.int32)])
                 rows = np.concatenate([rows, np.zeros(pad, np.int32)])
             histogram = pileup_histogram(
-                *(torch.from_numpy(x).to(device) for x in (codes, cols, rows)),
+                *(trace.upload(x, device) for x in (codes, cols, rows)),
                 _DEVICE_ROW_CHUNK, window).cpu().numpy()
             for local, (pileup, lo) in enumerate(chunk):
                 nz_col, nz_sym = np.nonzero(histogram[local, :, :4])

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops import readfilters, realign
 from ..ops.encode import PAD_CODE, ReadBatch, round_up
 
@@ -59,7 +60,7 @@ class Mesh:
         rows = array.shape[0] // self.size * self.n_local
         local = np.ascontiguousarray(array[self.rank * rows:
                                            (self.rank + 1) * rows])
-        return torch.from_numpy(local).to(self.device)
+        return trace.upload(local, self.device)
 
     def shards(self, tensor: torch.Tensor):
         """The local shards of this process's rows."""

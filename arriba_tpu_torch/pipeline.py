@@ -18,6 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import trace
 from .annotation.index import IntervalIndex, combine_annotations
 from .annotation.queries import annotate_alignments, compute_exonic_lengths
 from .annotation.tables import Annotation
@@ -63,17 +64,16 @@ def _time_string() -> str:
     return time.strftime("[%Y-%m-%dT%H:%M:%S]")
 
 
+# the stage log and the tracer's switch (trace.py; cli.main reads it)
 _STAGE_TIMES = os.environ.get("ARRIBA_TPU_TORCH_STAGE_TIMES", "") not in ("", "0")
-_last_log_time: List[float] = []
 
 
 def log(message: str, end: str = "\n") -> None:
     if _STAGE_TIMES:
-        now = time.perf_counter()
-        if _last_log_time:
-            print(f"[stage +{now - _last_log_time[0]:7.3f}s]",
-                  file=sys.stderr, flush=True)
-        _last_log_time[:] = [now]
+        # each line opens a stage span and closes the one before it
+        since = trace.stage(message)
+        if since is not None:
+            print(f"[stage +{since:7.3f}s]", file=sys.stderr, flush=True)
         print(f"[stage] {message}", file=sys.stderr, flush=True)
     print(f"{_time_string()} {message}", end=end, flush=True)
 
@@ -223,11 +223,8 @@ def run(options: Options) -> PipelineState:
         # re-index/re-bind, and re-annotate + disambiguate (phase 2)
         from .annotation.native_annotate import (bind_annotation_engine,
                                                  bind_gene_index)
-        annotate_timing = os.environ.get("ARRIBA_TPU_TORCH_SCAN_TIMING")
-        t0 = time.perf_counter() if annotate_timing else 0.0
         dummy_contig_b, dummy_start_b, dummy_end_b = \
             ca.native.annotate_store_phase1(options.threads)
-        t1 = time.perf_counter() if annotate_timing else 0.0
         if len(dummy_contig_b) > 0:
             genes.append_dummies(np.frombuffer(dummy_contig_b, np.int64),
                                  np.frombuffer(dummy_start_b, np.int64),
@@ -235,16 +232,9 @@ def run(options: Options) -> PipelineState:
         state.gene_index = IntervalIndex(genes.contig, genes.start, genes.end,
                                          len(state.contigs))
         gene_index = state.gene_index
-        t2 = time.perf_counter() if annotate_timing else 0.0
         bind_annotation_engine(ca.native, state.exon_index, exons, genes)
         bind_gene_index(ca.native, gene_index, genes)
-        t3 = time.perf_counter() if annotate_timing else 0.0
         ca.native.annotate_store_phase2()
-        if annotate_timing:
-            print(f"annotate timing: phase1={t1 - t0:.3f}s "
-                  f"reindex={t2 - t1:.3f}s bind={t3 - t2:.3f}s "
-                  f"phase2={time.perf_counter() - t3:.3f}s",
-                  file=sys.stderr)
         return _run_cascades(state, options, enabled, ca, annotation, genes,
                              exons, gene_index)
 
