@@ -956,6 +956,35 @@ def _scan_sam_sharded(path, name_to_tid, boundaries, interesting_per_tid,
             names_blob, name_offsets_b, multimapper_count)
 
 
+def _scan(path, n_shard_procs, retain, stream_native, name_to_tid,
+          boundaries, interesting_per_tid, viral_per_tid, planes,
+          external_duplicate_marking, threads, extract_tables):
+    """The native extraction scan of path (the sharded SAM scan where asked
+    for and possible)."""
+    if (n_shard_procs > 1 and retain and not stream_native
+            and _path_is_plain_sam(path)):
+        try:
+            return _scan_sam_sharded(
+                path, name_to_tid, boundaries, bytes(interesting_per_tid),
+                bytes(viral_per_tid), planes, external_duplicate_marking,
+                threads, extract_tables, n_shard_procs)
+        except Exception as error:  # noqa: BLE001
+            # a worker crash must not abort the run: the unsharded scan is
+            # byte-identical by construction. Coverage planes may hold
+            # partial worker sums — rebuild them.
+            print(f"WARNING: sharded ingest failed ({error}); "
+                  f"falling back to the single-process scan "
+                  f"(output is unaffected)", file=sys.stderr)
+            for plane in planes:
+                if plane is not None:
+                    for arr in plane:
+                        arr[:] = 0
+    return _native.scan_sam(
+        path, name_to_tid, boundaries, bytes(interesting_per_tid),
+        bytes(viral_per_tid), planes, external_duplicate_marking, threads,
+        extract_tables, 1 if stream_native else 0)
+
+
 def _path_is_plain_sam(path: str) -> bool:
     try:
         with open(path, "rb") as fh:
@@ -1008,6 +1037,7 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
         finally:
             _os.unlink(spooled)
 
+    bam_header = None  # a regular BAM file's header bytes (ingest/card.py)
     native_eligible = stream_native or (
         _native is not None and is_rna_bam_file
         and not separate_chimeric_bam_file
@@ -1029,6 +1059,7 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
     elif native_eligible and _path_is_bam(path):
         from ..io.bam import read_bam_header
         header = read_bam_header(path)
+        bam_header = header.raw
         records = iter(())  # replaced by the forwarded stream below
     elif native_eligible:
         # SAM/SAM.gz on the native path: only the @ header lines are needed
@@ -1141,38 +1172,27 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                     _os.environ.get("ARRIBA_TPU_TORCH_SHARDS", "0") or "0")
             except ValueError:
                 pass
-            with trace.span("ingest.scan"):
-                if (n_shard_procs > 1 and retain and not stream_native
-                        and _path_is_plain_sam(path)):
-                    try:
-                        result = _scan_sam_sharded(
-                            path, name_to_tid, boundaries,
-                            bytes(interesting_per_tid), bytes(viral_per_tid),
-                            planes, external_duplicate_marking, threads,
-                            extract_tables, n_shard_procs)
-                    except Exception as error:  # noqa: BLE001
-                        # a worker crash must not abort the run: the
-                        # unsharded scan is byte-identical by construction.
-                        # Coverage planes may hold partial worker sums —
-                        # rebuild them.
-                        print(f"WARNING: sharded ingest failed ({error}); "
-                              f"falling back to the single-process scan "
-                              f"(output is unaffected)", file=sys.stderr)
-                        for plane in planes:
-                            if plane is not None:
-                                for arr in plane:
-                                    arr[:] = 0
-                        result = _native.scan_sam(
-                            path, name_to_tid, boundaries,
-                            bytes(interesting_per_tid), bytes(viral_per_tid),
-                            planes, external_duplicate_marking, threads,
-                            extract_tables, 1 if stream_native else 0)
-                else:
-                    result = _native.scan_sam(
-                        path, name_to_tid, boundaries,
-                        bytes(interesting_per_tid), bytes(viral_per_tid),
-                        planes, external_duplicate_marking, threads,
-                        extract_tables, 1 if stream_native else 0)
+            # a regular-file BGZF BAM: the card takes its background of
+            # boring proper pairs (ingest/card.py) and the scan reads the
+            # residue; the pass's coverage is in the planes already
+            card_result = None
+            if bam_header is not None:
+                from . import card
+                card_result = card.run(
+                    path, bam_header, boundaries, planes,
+                    bytes(interesting_per_tid), bytes(viral_per_tid),
+                    external_duplicate_marking)
+            scan_path = path if card_result is None else card_result.path
+            try:
+                with trace.span("ingest.scan"):
+                    result = _scan(scan_path, n_shard_procs, retain,
+                                   stream_native, name_to_tid, boundaries,
+                                   interesting_per_tid, viral_per_tid, planes,
+                                   external_duplicate_marking, threads,
+                                   extract_tables)
+            finally:
+                if card_result is not None:
+                    card_result.close()
             if retain:
                 (_header_bytes, total_mapped, viral_counts, _n_records,
                  (missing_hi_tag, malformed_count, no_chimeric_flag),
@@ -1186,6 +1206,8 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                 (_header_bytes, total_mapped, viral_counts, _n_records,
                  (missing_hi_tag, malformed_count, no_chimeric_flag),
                  arrays) = main
+            if card_result is not None:
+                total_mapped += card_result.mapped
             for tid, count in enumerate(viral_counts):
                 mapped_viral_reads_by_contig[tid_to_contig[tid]] += count
             if not retain:

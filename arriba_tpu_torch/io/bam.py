@@ -107,6 +107,7 @@ class SamHeader:
     target_names: List[str] = field(default_factory=list)
     target_lengths: List[int] = field(default_factory=list)
     text: str = ""
+    raw: bytes = b""  # a BAM's header bytes, "BAM\1" through the last target
 
     @property
     def n_targets(self) -> int:
@@ -303,6 +304,7 @@ def read_bam_header(path: str) -> SamHeader:
             header.target_names.append(name)
             header.target_lengths.append(l_ref)
             pos += 8 + l_name
+    header.raw = bytes(data[:pos])
     return header
 
 

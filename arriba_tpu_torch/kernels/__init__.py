@@ -40,7 +40,9 @@ launch_counts = {"accept_wavefront": 0, "accept_wavefront_indexed": 0,
                  "kmer_bitmap_screen": 0, "low_entropy": 0,
                  "low_entropy_long": 0, "smith_waterman": 0,
                  "smith_waterman_wide16": 0, "smith_waterman_wide": 0,
-                 "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0}
+                 "mxu_kmer_screen": 0, "mxu_kmer_screen_any_k": 0,
+                 "bgzf_inflate": 0, "bam_frame": 0, "bam_pairs": 0,
+                 "bam_residue": 0, "bam_coverage_finish": 0}
 
 
 def reset_launch_counts() -> None:
@@ -576,3 +578,135 @@ def mxu_kmer_screen(reads, windows, k: int = 8):
     out = torch.empty(reads.shape[0], dtype=torch.uint8, device=reads.device)
     launch_mxu_kmer_screen(reads, windows, out, k)
     return out.view(torch.bool)
+
+
+# K6 (csrc/bam_ingest.cu), the card pass over a BGZF BAM (ingest/card.py
+# drives it chunk by chunk and holds the buffers; the launches below check
+# what they can without waiting for the card). CTX_BYTES holds a BiKey
+# (csrc/bam_ingest.cuh: 40 bytes of fields and a 256-byte name).
+CTX_BYTES = 512
+
+
+def launch_bgzf_inflate(comp, member_offset, member_size, out_offset, out,
+                        status, stats) -> None:
+    """Inflate each BGZF member of comp (uint8) at member_offset (int64
+    [M], its size member_size, int64 [M]) into out (uint8) at out_offset
+    (int64 [M]), a warp a member; status int32 [>= M] gets each member's
+    bam_ingest.cuh error code (0 where it checks), stats[3] (int64 [16])
+    the count that failed."""
+    import torch
+
+    _require(comp, "comp", torch.uint8, 1)
+    _require(out, "out", torch.uint8, 1)
+    _require(status, "status", torch.int32, 1)
+    _require(stats, "stats", torch.int64, 1)
+    for name, x in (("member_offset", member_offset),
+                    ("member_size", member_size), ("out_offset", out_offset)):
+        _require(x, name, torch.int64, 1)
+    m = member_offset.shape[0]
+    if member_size.shape[0] != m or out_offset.shape[0] != m \
+            or status.shape[0] < m:
+        raise ValueError("one offset, size, out offset and status a member")
+    _launch("bgzf_inflate", comp, member_offset, member_size, out_offset, m,
+            out, status, stats)
+
+
+def launch_bam_frame(buf, end: int, seg_lo, seg_hi, n_ref: int, seg, walked,
+                     starts, stats) -> None:
+    """Frame the records of buf[:end] from its ranges [seg_lo, seg_hi)
+    (int64 [S]; the first range's start is a record start): starts (int64)
+    gets every record start whole inside end, stats[0] their count,
+    stats[1] where the chain stops and stats[2] how (0 at end, 1 at a
+    partial record, 2 at a block_size <= 0). seg (int64 [>= 4 S]) and
+    walked (int32 [>= S]) are scratch."""
+    import torch
+
+    _require(buf, "buf", torch.uint8, 1)
+    for name, x in (("seg_lo", seg_lo), ("seg_hi", seg_hi), ("seg", seg),
+                    ("starts", starts), ("stats", stats)):
+        _require(x, name, torch.int64, 1)
+    _require(walked, "walked", torch.int32, 1)
+    s = seg_lo.shape[0]
+    if seg_hi.shape[0] != s or seg.shape[0] < 4 * s or walked.shape[0] < s \
+            or not 0 <= end <= buf.shape[0] or starts.shape[0] < end // 36 + 1:
+        raise ValueError("ranges, scratch and starts do not fit buf")
+    _launch("bam_frame", buf, end, seg_lo, seg_hi, s, n_ref, seg[:s],
+            seg[s:2 * s], seg[2 * s:3 * s], walked, seg[3 * s:4 * s], starts,
+            stats)
+
+
+def launch_bam_pairs(buf, starts, stats, final: bool, ctx_in, ctx_out,
+                     contigs, test, maybe, same, cov, cov_starts, cov_ends,
+                     kept_size, kept, chain_start) -> None:
+    """Test and take the adjacent pairs of the stats[0] records at starts
+    (launch_bam_frame), add the taken pairs' coverage into cov (int32) and
+    their flags into cov_starts / cov_ends (uint8) over the flat planes,
+    count them in stats[4] (records) and stats[5] (on interesting
+    contigs), and give each record slot its kept size (int64, 0 where
+    taken or past the records), kept flag (int32) and chain_start (uint8:
+    it may begin a chain the engine pairs by its decode tiles; stats[7]
+    counts them). ctx_in / ctx_out (uint8 [CTX_BYTES], bam_ingest.cuh
+    BiKey) carry the last record's key from one chunk to the next; final:
+    no chunk follows. test, maybe and same are scratch. contigs: (bounds,
+    bound_offset, plane_offset, interesting, viral, n_tids, external
+    duplicate marking) as ingest.card.Contigs holds them."""
+    import torch
+
+    (bounds, bound_offset, plane_offset, interesting, viral, n_tids,
+     external) = contigs
+    _require(buf, "buf", torch.uint8, 1)
+    cap = starts.shape[0]
+    for name, x, dtype in (("starts", starts, torch.int64),
+                           ("test", test, torch.uint8),
+                           ("maybe", maybe, torch.uint8),
+                           ("same", same, torch.uint8),
+                           ("kept_size", kept_size, torch.int64),
+                           ("kept", kept, torch.int32),
+                           ("chain_start", chain_start, torch.uint8)):
+        _require(x, name, dtype, 1)
+        if x.shape[0] != cap:
+            raise ValueError(f"{name} must have one slot a record")
+    _require(cov, "cov", torch.int32, 1)
+    _require(cov_starts, "cov_starts", torch.uint8, 1)
+    _require(cov_ends, "cov_ends", torch.uint8, 1)
+    if ctx_in.shape[0] < CTX_BYTES or ctx_out.shape[0] < CTX_BYTES \
+            or bound_offset.shape[0] != n_tids + 1 \
+            or plane_offset.shape[0] != n_tids + 1:
+        raise ValueError("contexts of CTX_BYTES and one offset a tid")
+    _launch("bam_pairs", buf, starts, stats, cap, 1 if final else 0, ctx_in,
+            ctx_out, bounds, bound_offset, plane_offset, interesting, viral,
+            n_tids, external, test, maybe, same, cov, cov_starts, cov_ends,
+            kept_size, kept, chain_start)
+
+
+def launch_bam_residue(buf, starts, stats, base: int, kept_size, size_sum,
+                       kept_sum, chain_start, res, res_offset, res_record,
+                       res_chain) -> None:
+    """Copy the kept records (launch_bam_pairs) in order into res at the
+    inclusive sums size_sum (int64) and kept_sum (int32) of their sizes and
+    flags; residue slot j gets its byte offset, its record index (base +
+    its index in the chunk) and its chain_start flag."""
+    import torch
+
+    cap = starts.shape[0]
+    for name, x in (("kept_size", kept_size), ("size_sum", size_sum),
+                    ("res_offset", res_offset), ("res_record", res_record)):
+        _require(x, name, torch.int64, 1)
+        if x.shape[0] != cap:
+            raise ValueError(f"{name} must have one slot a record")
+    _require(kept_sum, "kept_sum", torch.int32, 1)
+    _require(res, "res", torch.uint8, 1)
+    _require(res_chain, "res_chain", torch.uint8, 1)
+    _launch("bam_residue", buf, starts, stats, cap, base, kept_size, size_sum,
+            kept_sum, chain_start, res, res_offset, res_record, res_chain)
+
+
+def launch_bam_coverage_finish(cov, out) -> None:
+    """out (int16 holding uint16 bits) = cov (int32) saturated at 0xFFFF."""
+    import torch
+
+    _require(cov, "cov", torch.int32, 1)
+    _require(out, "out", torch.int16, 1)
+    if out.shape[0] != cov.shape[0]:
+        raise ValueError("out must match cov")
+    _launch("bam_coverage_finish", cov, out, cov.shape[0])

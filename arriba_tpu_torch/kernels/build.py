@@ -27,7 +27,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("accept_wavefront", "low_entropy", "smith_waterman",
-           "smith_waterman_wide", "mxu_kmer_screen", "kmer_bitmap_screen")
+           "smith_waterman_wide", "mxu_kmer_screen", "kmer_bitmap_screen",
+           "bam_ingest")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,13 +71,33 @@ _SIGNATURES = {
     "mxu_kmer_screen_any_k": ("arriba_mxu_kmer_screen_any_k",
                               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                               + [ctypes.c_void_p]),
+    "bgzf_inflate": ("arriba_bgzf_inflate",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 4),
+    "bam_frame": ("arriba_bam_frame",
+                  [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_void_p] * 8),
+    "bam_pairs": ("arriba_bam_pairs",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+                  + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 10),
+    "bam_residue": ("arriba_bam_residue",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_void_p] * 9),
+    "bam_coverage_finish": ("arriba_bam_coverage_finish",
+                            [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                     ctypes.c_void_p]),
 }
 _LIBRARIES = {"accept_wavefront_indexed": "accept_wavefront",
               "kmer_bitmap_build": "kmer_bitmap_screen",
               "kmer_bitmap_test": "kmer_bitmap_screen",
               "mxu_kmer_screen_any_k": "mxu_kmer_screen",
               "smith_waterman_wide16": "smith_waterman_wide",
-              "low_entropy_long": "low_entropy"}
+              "low_entropy_long": "low_entropy",
+              "bgzf_inflate": "bam_ingest", "bam_frame": "bam_ingest",
+              "bam_pairs": "bam_ingest", "bam_residue": "bam_ingest",
+              "bam_coverage_finish": "bam_ingest"}
 
 _loaded: dict = {}
 

@@ -137,15 +137,18 @@ def count(name: str, n: int = 1) -> None:
         _root.counters[name] = _root.counters.get(name, 0) + int(n)
 
 
-def upload(array, device):
+def upload(array, device, out=None):
     """array (numpy) as a tensor on device, its bytes added to the
     counter h2d_bytes: every copy of a host array to the device goes
-    through here."""
+    through here. With out (a device tensor of its size), array is a
+    pinned CPU tensor copied into out without waiting."""
     import torch
 
     if _root is not None:
         _root.counters["h2d_bytes"] = (_root.counters.get("h2d_bytes", 0)
                                        + array.nbytes)
+    if out is not None:
+        return out.copy_(array, non_blocking=True)
     return torch.from_numpy(array).to(device)
 
 

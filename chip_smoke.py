@@ -6,6 +6,7 @@
     python3 chip_smoke.py --instruction-rates
     python3 chip_smoke.py --k4-occupancy
     python3 chip_smoke.py --run-a CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --k6
 
 The second form only times one kernel (accept_wavefront, low_entropy,
 smith_waterman, smith_waterman_wide, mxu_kmer_screen at k = 8,
@@ -146,6 +147,19 @@ printed):
    run C's and each launched K2 (cohort_phase).
 8. A downstream tool on the card's machine: convert_fusions_to_vcf on run
    C's fusions.tsv with jax blocked (tool_phase).
+9. K6, the card pass over a BGZF BAM (ingest/card.py), on the benchmark's
+   own sample (benchmark/samples.py, K6_CELL at K6_SEED: 9.4 M records,
+   652 MB at level 1, 32 MB read a chunk) through the CLI on the card, the
+   launch counts reset just before the pass: each K6 launch timed on its
+   stream with CUDA events, the pass held against card.plain_pass on the
+   same file and tables (the records taken and left, the mapped reads,
+   the chains and placeholders, the coverage planes and flags, the
+   residue's bytes), the device memory it took, and the CLI's outputs
+   and stage counters against the engine alone (DEVICE=off); a kernels
+   record a K6 launch with its launches, its mean time a launch, the
+   plain pass's step a launch, and its bound from the bytes it must move
+   (k6_work) (check_bam_ingest). ``python3 chip_smoke.py --k6`` runs the
+   build and this phase alone.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3289,6 +3303,227 @@ def tool_phase(sample: pathlib.Path, fusions: pathlib.Path) -> None:
         f"records for {n_fusions} fusions in {seconds:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: K6, the card pass over a BGZF BAM, on the benchmark's own sample
+
+K6_LAUNCHES = ("bgzf_inflate", "bam_frame", "bam_pairs", "bam_residue",
+               "bam_coverage_finish")
+K6_CELL = "genome150-native.whole"
+K6_SEED = 2147000777
+
+
+def k6_sample():
+    """The benchmark's sample of K6_CELL at K6_SEED (benchmark/samples.py:
+    9.4 M records, 652 MB of BGZF at level 1, its background cached under
+    build/benchmark/cache) and the CLI's arguments for it."""
+    from benchmark import harness, samples
+
+    workload = harness.load_json("workloads", K6_CELL)
+    config = harness.load_json("configs", workload["config"])
+    traffic = harness.load_json("traffic", workload["traffic"])
+    bg, _, _ = samples.make(config, traffic, K6_SEED, harness.BUILD / "cache",
+                            int(config["threads"]))
+    return bg, harness.cli_args(config, bg,
+                                REPO / "build" / "chip_smoke" / "k6")
+
+
+def k6_cli(args: list, label: str, device: str):
+    """One in-process CLI run on device: (seconds, fusions bytes,
+    discarded bytes, stage counters)."""
+    from arriba_tpu_torch import cli
+
+    out = REPO / "build" / "chip_smoke" / "k6"
+    out.mkdir(parents=True, exist_ok=True)
+    args = list(args)
+    args[args.index("-o") + 1] = str(out / f"{label}.tsv")
+    args[args.index("-O") + 1] = str(out / f"{label}.discarded.tsv")
+    saved = os.environ.get("ARRIBA_TPU_TORCH_DEVICE")
+    os.environ["ARRIBA_TPU_TORCH_DEVICE"] = device
+    stdout = io.StringIO()
+    try:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            status = cli.main(args)
+        seconds = time.perf_counter() - start
+    finally:
+        if saved is None:
+            os.environ.pop("ARRIBA_TPU_TORCH_DEVICE", None)
+        else:
+            os.environ["ARRIBA_TPU_TORCH_DEVICE"] = saved
+    text = stdout.getvalue()
+    if status != 0:
+        raise SystemExit(f"K6 run {label} exited {status}:\n{text[-3000:]}")
+    counters = re.findall(r"\((?:remaining|total|marked)=\d+\)", text)
+    return (seconds, (out / f"{label}.tsv").read_bytes(),
+            (out / f"{label}.discarded.tsv").read_bytes(), counters)
+
+
+def k6_work(path: str, contigs, result) -> dict:
+    """The bytes each K6 launch must move at least, summed over the
+    file: inflate reads each member and writes its ISIZE bytes; the
+    framing reads each record's block_size and writes its start (12 bytes
+    a record); the pair test reads each record's 36-byte fixed part and
+    writes its six flags and sizes (16 bytes); the residue copy reads and
+    writes each kept byte and reads three sums and writes three slots a
+    record (20 + 17 bytes); the coverage finish reads 4 and writes 2
+    bytes a window."""
+    from arriba_tpu_torch.ingest import card
+
+    data = pathlib.Path(path).read_bytes()
+    members = list(card._members(data))
+    isize = sum(int.from_bytes(data[at + size - 4:at + size], "little")
+                for at, size in members)
+    records = result.taken + result.residue
+    residue_bytes = (os.path.getsize(result.path) - len(contigs.header)
+                     - result.placeholders * len(card.PLACEHOLDER))
+    return {"bgzf_inflate": len(data) + isize,
+            "bam_frame": 12 * records,
+            "bam_pairs": (36 + 16) * records,
+            "bam_residue": 2 * residue_bytes + 20 * records
+            + 17 * result.residue,
+            "bam_coverage_finish": 6 * contigs.windows,
+            "records": records, "members": len(members), "isize": isize,
+            "residue_bytes": residue_bytes}
+
+
+def check_bam_ingest() -> list:
+    """K6 on the benchmark's sample through the CLI: each launch of the
+    pass timed on its stream with CUDA events (the launch counts reset
+    just before), the pass held against card.plain_pass on the same file
+    and tables (taken, residue, mapped, chains, placeholders, the coverage
+    planes and flags, the residue's bytes), the device memory it took,
+    and the outputs against the engine alone (DEVICE=off). Returns a
+    kernels record a K6 launch: launches, mean ms a launch, the plain
+    pass's step over the whole file a launch, and the bound from k6_work's
+    bytes."""
+    import filecmp
+
+    import numpy as np
+    import torch
+
+    from arriba_tpu_torch import kernels
+    from arriba_tpu_torch.ingest import card
+
+    t0 = time.perf_counter()
+    bg, args = k6_sample()
+    log(f"phase 9: the sample {bg.sample} ({bg.sample.stat().st_size:,} "
+        f"bytes) in {time.perf_counter() - t0:.1f} s")
+    originals = {name: getattr(kernels, f"launch_{name}")
+                 for name in K6_LAUNCHES}
+    events = {name: [] for name in K6_LAUNCHES}
+    cuts = []
+
+    def timed(name):
+        def launch(*a):
+            if name == "bam_residue" and a[3] > 0:  # a chunk's first record
+                cuts.append(a[3])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            originals[name](*a)
+            end.record()
+            events[name].append((start, end))
+        return launch
+
+    held = {}
+
+    def compared(path, contigs):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        for name in K6_LAUNCHES:
+            setattr(kernels, f"launch_{name}", timed(name))
+        try:
+            start = time.perf_counter()
+            result = card.card_pass(path, contigs)
+            torch.cuda.synchronize()
+            held["card_s"] = time.perf_counter() - start
+        finally:
+            for name, launch in originals.items():
+                setattr(kernels, f"launch_{name}", launch)
+        held["memory"] = torch.cuda.max_memory_allocated() - before
+        held["launches"] = {name: kernels.launch_counts[name]
+                            for name in K6_LAUNCHES}
+        held["ms"] = {name: sum(a.elapsed_time(b) for a, b in pairs)
+                      for name, pairs in events.items()}
+        times = {}
+        start = time.perf_counter()
+        plain = card.plain_pass(path, contigs, times, cuts)
+        held["plain_s"] = time.perf_counter() - start
+        try:
+            same = {
+                "counts": (plain.taken, plain.residue, plain.mapped,
+                           plain.chains, plain.placeholders)
+                == (result.taken, result.residue, result.mapped,
+                    result.chains, result.placeholders),
+                "coverage": np.array_equal(
+                    np.minimum(plain.coverage, 0xFFFF),
+                    result.coverage.cpu().numpy().view(np.uint16)),
+                "starts": np.array_equal(plain.starts,
+                                         result.starts.cpu().numpy()),
+                "ends": np.array_equal(plain.ends, result.ends.cpu().numpy()),
+                "residue": filecmp.cmp(plain.path, result.path,
+                                       shallow=False)}
+            start = time.perf_counter()
+            np.minimum(plain.coverage, 0xFFFF)
+            times["coverage_finish"] = time.perf_counter() - start
+            held["work"] = k6_work(path, contigs, result)
+        finally:
+            plain.close()
+        held["plain_times"] = times
+        # the CLI holds stdout: logged after it
+        held["line"] = (
+            f"K6 against the plain pass: {same}; card {result.taken:,} "
+            f"records taken, {result.residue:,} left in {len(cuts) + 1} "
+            f"chunks, {result.mapped:,} mapped, {result.chains} chains, "
+            f"{result.placeholders} placeholders; the pass "
+            f"{held['card_s']:.3f} s, the plain pass {held['plain_s']:.1f} s")
+        if not all(same.values()):
+            raise SystemExit(held["line"])
+        return result
+
+    saved = card.backend
+    card.backend = lambda: compared
+    try:
+        on_card = k6_cli(args, "card", "cuda")
+    finally:
+        card.backend = saved
+    if "launches" not in held:
+        raise SystemExit("the CLI never entered the card pass on a BGZF BAM")
+    log(held["line"])
+    alone = k6_cli(args, "off", "off")
+    equal = [on_card[k] == alone[k] for k in (1, 2, 3)]
+    log(f"K6 run: {on_card[0]:.3f} s on the card, {alone[0]:.3f} s with "
+        f"DEVICE=off; fusions, discarded, counters equal: {equal} "
+        f"({len(on_card[3])} counters); device memory of the pass "
+        f"{held['memory']:,} bytes; work {held['work']}")
+    if not all(equal) or not on_card[3]:
+        raise SystemExit("the card pass changed the CLI's outputs")
+    records = []
+    plain_step = {"bgzf_inflate": "inflate", "bam_frame": "frame",
+                  "bam_pairs": "pairs", "bam_residue": "residue",
+                  "bam_coverage_finish": "coverage_finish"}
+    for name in K6_LAUNCHES:
+        n = held["launches"][name]
+        if n <= 0:
+            raise SystemExit(f"{name} never launched in the card pass")
+        ms = held["ms"][name] / n
+        bound_ms, bound_by = bound(held["work"][name] / n, 0)
+        records.append({
+            "name": name, "route": "CUDA C++, bam_ingest.cu (K6)",
+            "launches": n, "ms": ms,
+            "plain_ms": held["plain_times"][plain_step[name]] * 1e3 / n,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "cases": {"sample": K6_CELL, "seed": K6_SEED,
+                      "records": held["work"]["records"],
+                      "members": held["work"]["members"],
+                      "device_memory_bytes": held["memory"],
+                      "pass_s": held["card_s"],
+                      "plain_pass_s": held["plain_s"]}})
+    return records
+
+
 def against_cases(kernel: str) -> dict:
     """The phase-2 inputs of a kernel for compare: {case: (arguments of its
     C entry point before the stream, setup run before each launch or None,
@@ -3742,6 +3977,25 @@ def main() -> int:
     if sys.argv[1:2] == ["--run-a"]:
         run_a_against(sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--k6"]:
+        import arriba_tpu_torch  # noqa: F401  (builds the native engine)
+        from arriba_tpu_torch.kernels import build
+
+        build.build()
+        t0 = time.perf_counter()
+        records = check_bam_ingest()
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+        for record in records:
+            log(f"{record['name']}: kernel {record['ms']:.4f} ms, plain "
+                f"{record['plain_ms']:.4f} ms, bound "
+                f"{record['bound_ms']:.4f} ms ({record['bound_by']}, "
+                f"{record['bound_ms'] / record['ms']:.1%} of the kernel's "
+                f"time), {record['launches']} launches in phase 9")
+        print(json.dumps({"kernels": records}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     clock = subprocess.run(["nvidia-smi", "-i", "0",
                             "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader"],
@@ -3850,9 +4104,17 @@ def main() -> int:
     tool_phase(sample, out_c)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
+    # phase 9: K6 on the benchmark's sample
+    t0 = time.perf_counter()
+    for record in check_bam_ingest():
+        launches[record["name"]] = record["launches"]
+        records.append(record)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     where = {"accept_wavefront_indexed": "run A",
              "kmer_bitmap_screen": "run A", "low_entropy": "run A",
              "smith_waterman": "phase 5", "smith_waterman_wide16": "phase 5"}
+    where.update({name: "phase 9" for name in K6_LAUNCHES})
     for record in records:
         record["launches"] = launches[record["name"]]
         if record["name"] == "mxu_kmer_screen":
