@@ -159,6 +159,21 @@ def make_kmer_index(fusions: Fusions, assembly: Assembly, genes: GeneTable,
     return kmer_indices
 
 
+def indexed_bases(kmer_indices: KmerIndices, assembly: Assembly,
+                  genes: GeneTable) -> int:
+    """The bases of the padded gene windows make_kmer_index indexed."""
+    total = 0
+    for gene in kmer_indices.indexed_genes:
+        contig_sequence = assembly.get(int(genes.contig[gene]))
+        if contig_sequence is None:
+            continue
+        gene_start = max(int(genes.start[gene]) - kmer_indices.padding, 0)
+        gene_end = min(int(genes.end[gene]) + kmer_indices.padding,
+                       len(contig_sequence) - 1)
+        total += max(gene_end - gene_start, 0)
+    return total
+
+
 def get_downstream_splice_sites(gene: int, genes: GeneTable, exons: ExonTable,
                                 exon_index: IntervalIndex) -> List[int]:
     """filter_mismappers.cpp:16-31 — sorted downstream splice sites of a gene."""
@@ -524,9 +539,11 @@ def device_screen(fusions: Fusions, chimeric_alignments: ChimericAlignments,
     copied to the device once (ops/realign.resident_pairs): K5 screens
     each pair against its whole window, K1's rows index the tables."""
     from ..ops.realign import accept_resident, resident_pairs, screen_resident
-    keys, seqs, windows, window_ids, min_scores, accept_ok = \
-        collect_screen_tasks(fusions, chimeric_alignments, assembly, genes,
-                             max_mate_gap, kmer_indices=kmer_indices)
+    with trace.span("screen.collect"):
+        keys, seqs, windows, window_ids, min_scores, accept_ok = \
+            collect_screen_tasks(fusions, chimeric_alignments, assembly,
+                                 genes, max_mate_gap,
+                                 kmer_indices=kmer_indices)
     trace.count("screen.pairs", len(keys))
     if not keys:
         return {}

@@ -673,7 +673,9 @@ class EventCascade:
         if not self._live:
             return
         self._live = False
-        self.rc.materialize_fusions(self.fusions)
+        with trace.span("events.materialize"):
+            self.rc.materialize_fusions(self.fusions)
+        trace.count("events.materialized", len(self.fusions))
 
     def _dispatch(self, native_name: str, native_args: tuple, python_fn,
                   python_args: tuple):
@@ -765,6 +767,7 @@ class EventCascade:
             (self.ca, self.fusions, self.state.assembly, self.genes,
              self.exons, self.exon_index))
 
+    @trace.spanned("events.evalue")
     def estimate_expected_fusions(self) -> None:
         from .event_level import estimate_expected_fusions
         sharded = self._sharded_statistics()
@@ -975,8 +978,9 @@ class EventCascade:
             (self.fusions, self.state.coverage, self.genes, self.exons,
              self.exon_index))
 
+    @trace.spanned("events.kmer_index")
     def make_kmer_index(self, padding: int, kmer_length: int) -> None:
-        from .mismappers import make_kmer_index
+        from .mismappers import indexed_bases, make_kmer_index
         if self._live and hasattr(self._native, "ev_make_kmer_index"):
             self._native.ev_make_kmer_index(int(padding),
                                             int(self.options.threads))
@@ -984,7 +988,12 @@ class EventCascade:
         self.materialize()
         self._kmer_indices = make_kmer_index(self.fusions, self.state.assembly,
                                              self.genes, padding, kmer_length)
+        if trace.active():
+            trace.count("events.kmer_index_bases",
+                        indexed_bases(self._kmer_indices, self.state.assembly,
+                                      self.genes))
 
+    @trace.spanned("events.homologs")
     def homologs(self) -> int:
         from .homologs import filter_homologs
         return self._dispatch(

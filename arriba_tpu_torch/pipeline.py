@@ -608,15 +608,16 @@ def _run_cascades(state, options, enabled, ca, annotation, genes, exons,
 
     if options.discarded_output_file:
         log(f"Writing discarded fusions to file '{options.discarded_output_file}'")
-        if not events.write_discarded(options.discarded_output_file):
-            write_fusions_to_file(fusions, options.discarded_output_file, ca,
-                                  state.coverage, state.assembly, annotation,
-                                  gene_index, state.exon_index,
-                                  state.contigs.original, state.tags,
-                                  state.protein_domains, state.max_mate_gap,
-                                  options.max_itd_length,
-                                  options.print_extra_info_for_discarded_fusions,
-                                  options.fill_sequence_gaps, True,
-                                  threads=options.threads)
+        with trace.span("writer.discarded"):
+            if not events.write_discarded(options.discarded_output_file):
+                write_fusions_to_file(
+                    fusions, options.discarded_output_file, ca,
+                    state.coverage, state.assembly, annotation, gene_index,
+                    state.exon_index, state.contigs.original, state.tags,
+                    state.protein_domains, state.max_mate_gap,
+                    options.max_itd_length,
+                    options.print_extra_info_for_discarded_fusions,
+                    options.fill_sequence_gaps, True,
+                    threads=options.threads)
 
     return state

@@ -165,8 +165,11 @@ def test_traced_cli_records_each_bulk_call_once_a_sample(
                           for s in closed]
 
 
+@pytest.mark.parametrize("events", ["native", "device"])
 def test_outputs_equal_with_tracing_on_and_off(buffer, monkeypatch,
-                                               tmp_path):
+                                               tmp_path, events):
+    if events == "device":
+        monkeypatch.setenv("ARRIBA_TPU_TORCH_NO_NATIVE_EVENT", "1")
     plain = _run(tmp_path, monkeypatch, False)
     traced = _run(tmp_path, monkeypatch, True)
     assert plain[:3] == traced[:3]
