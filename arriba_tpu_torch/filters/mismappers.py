@@ -1,7 +1,8 @@
 """Realignment filter: k-mer seeded seed-and-extend against the partner gene.
 
 Reference parity: source/filter_mismappers.cpp. The 8-mer index over padded
-fusion genes is built vectorized (numpy rolling 2-bit encoding); align() is
+fusion genes lives in the native realignment engine when it is loaded, and
+is otherwise built vectorized (numpy rolling 2-bit encoding); align() is
 the reference's bounded recursive seed-and-extend with splice-site and
 single-deletion recursion and early exit at 80 % identity. With device
 offload on (ARRIBA_TPU_TORCH_DEVICE=cuda or cpu), filter_mismappers first
@@ -53,7 +54,8 @@ KmerIndex = Dict[int, np.ndarray]
 
 
 class KmerIndices(dict):
-    """contig -> KmerIndex, plus the coverage metadata the device accept
+    """contig -> KmerIndex (empty where the native engine holds the
+    positions), plus the coverage metadata the device accept
     path needs for soundness: which genes were indexed and with what
     padding (a device single-seed accept is only honored where the host
     index provably contains the seed position)."""
@@ -95,6 +97,36 @@ def make_kmer_index(fusions: Fusions, assembly: Assembly, genes: GeneTable,
     if padding < 0:
         padding = 0
 
+    kmer_indices = KmerIndices()
+    kmer_indices.padding = padding
+    kmer_indices.indexed_genes = frozenset(genes_to_filter)
+
+    # mirror the index into the native realignment engine; every reader of
+    # the positions (align_both_strands, is_homolog) asks the engine once it
+    # is ready, so the table then keeps only its contigs, each with an empty
+    # index, for the presence test
+    global _native_engine_ready
+    _native_engine_ready = False
+    _NATIVE_SPLICE_REGISTERED.clear()
+    if _native is not None:
+        _native.realign_reset()
+        for contig in sorted({int(genes.contig[g]) for g in genes_to_filter}):
+            seq = assembly.get(contig)
+            if seq is not None:
+                _native.realign_set_contig(contig, seq)
+        for gene in sorted(genes_to_filter):
+            contig = int(genes.contig[gene])
+            seq = assembly.get(contig)
+            if seq is None:
+                continue
+            gene_start = max(int(genes.start[gene]) - padding, 0)
+            gene_end = min(int(genes.end[gene]) + padding, len(seq) - 1)
+            _native.realign_add_kmers(contig, gene_start, gene_end)
+            kmer_indices.setdefault(contig, {})
+        _native.realign_finalize()
+        _native_engine_ready = True
+        return kmer_indices
+
     # collect (kmer, position) pairs per contig, then group
     per_contig: Dict[int, List[Tuple[np.ndarray, np.ndarray]]] = {}
     for gene in sorted(genes_to_filter):
@@ -115,30 +147,6 @@ def make_kmer_index(fusions: Fusions, assembly: Assembly, genes: GeneTable,
         not_n = window[:len(values)] != ord("N")
         per_contig.setdefault(contig, []).append((values[not_n], positions[not_n]))
 
-    # mirror the index into the native realignment engine
-    global _native_engine_ready
-    _native_engine_ready = False
-    _NATIVE_SPLICE_REGISTERED.clear()
-    if _native is not None:
-        _native.realign_reset()
-        for contig in sorted({int(genes.contig[g]) for g in genes_to_filter}):
-            seq = assembly.get(contig)
-            if seq is not None:
-                _native.realign_set_contig(contig, seq)
-        for gene in sorted(genes_to_filter):
-            contig = int(genes.contig[gene])
-            seq = assembly.get(contig)
-            if seq is None:
-                continue
-            gene_start = max(int(genes.start[gene]) - padding, 0)
-            gene_end = min(int(genes.end[gene]) + padding, len(seq) - 1)
-            _native.realign_add_kmers(contig, gene_start, gene_end)
-        _native.realign_finalize()
-        _native_engine_ready = True
-
-    kmer_indices = KmerIndices()
-    kmer_indices.padding = padding
-    kmer_indices.indexed_genes = frozenset(genes_to_filter)
     for contig, chunks in per_contig.items():
         values = np.concatenate([v for v, _ in chunks])
         positions = np.concatenate([p for _, p in chunks])

@@ -992,6 +992,11 @@ class EventCascade:
             trace.count("events.kmer_index_bases",
                         indexed_bases(self._kmer_indices, self.state.assembly,
                                       self.genes))
+            # (contig, 8-mer) keys of the Python table: 0 where the native
+            # realignment engine holds the positions
+            trace.count("events.kmer_table_kmers",
+                        sum(len(index)
+                            for index in self._kmer_indices.values()))
 
     @trace.spanned("events.homologs")
     def homologs(self) -> int:

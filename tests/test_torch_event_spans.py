@@ -1,10 +1,12 @@
 """The tracer's spans and counters of the Python event stages
 (arriba_tpu_torch/trace.py): on the device event path each of them is
 recorded once a sample inside its stage's span, `events.materialized`
-counts the Python fusion table's rows and `events.kmer_index_bases` the
-padded gene windows indexed; on the native event cascade the stages with
-a native twin keep their spans and nothing materializes early; with the
-switch off nothing is recorded."""
+counts the Python fusion table's rows, `events.kmer_index_bases` the
+padded gene windows indexed and `events.kmer_table_kmers` the Python
+k-mer table's keys (none while the native engine holds the positions); on
+the native event cascade the stages with a native twin keep their spans
+and nothing materializes early; with the switch off nothing is
+recorded."""
 
 import collections
 import contextlib
@@ -115,6 +117,19 @@ def test_kmer_index_bases_count_the_padded_gene_windows(buffer, monkeypatch,
     (root,) = trace.finished()
     assert len(expected) == 1 and expected[0] > 0
     assert root.counters["events.kmer_index_bases"] == expected[0]
+
+
+def test_kmer_table_kmers_read_zero_where_the_native_engine_holds_them(
+        buffer, monkeypatch, tmp_path):
+    assert mismappers._native is not None
+    _run(tmp_path, monkeypatch, True, True)
+    (root,) = trace.finished()
+    assert root.counters["events.kmer_index_bases"] > 0
+    assert root.counters["events.kmer_table_kmers"] == 0
+    buffer.clear()
+    _run(tmp_path, monkeypatch, True, False)
+    (root,) = trace.finished()
+    assert "events.kmer_table_kmers" not in root.counters
 
 
 def test_native_event_cascade_keeps_the_spans_of_its_native_twins(

@@ -32,3 +32,17 @@ def test_port_matches_jax_package(tmp_path, sample, suffixes):
     assert_same_outputs(
         run_cli("arriba_tpu", args, tmp_path, "jax", jax_env),
         run_cli("arriba_tpu_torch", args, tmp_path, "torch", torch_env))
+
+
+@pytest.mark.parametrize("switch", ["NO_NATIVE_EVENT", "NO_NATIVE"])
+def test_event_paths_match_the_default(tmp_path, switch):
+    """The Python event stages (on the native realignment engine, whose
+    Python k-mer table holds no positions) and the pure-Python engine (on
+    the full table) write what the native event cascade writes."""
+    args = scenario.translocation_sample(tmp_path)
+    assert_same_outputs(
+        run_cli("arriba_tpu_torch", args, tmp_path, "default",
+                {"ARRIBA_TPU_TORCH_DEVICE": "cpu"}),
+        run_cli("arriba_tpu_torch", args, tmp_path, "switched",
+                {"ARRIBA_TPU_TORCH_DEVICE": "cpu",
+                 f"ARRIBA_TPU_TORCH_{switch}": "1"}))
