@@ -23,16 +23,8 @@ Layer map:
   pipeline.py                    the orchestrator (reference: arriba.cpp:main)
 """
 
-import os as _os
-import sys as _sys
+from . import _native_build
 
 __version__ = "0.1.0"
 
-if _os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") != "1":
-    from . import _native_build
-
-    try:
-        _native_build.ensure_built()
-    except Exception as _error:  # noqa: BLE001 - the Python engine still runs
-        print(f"WARNING: could not build arriba_tpu_torch._native "
-              f"({_error}); using the pure-Python engine", file=_sys.stderr)
+_native_build.engine()  # build the engine now, or warn and run without it

@@ -4,30 +4,20 @@ Flattens all fragments into columnar arrays, annotates them in one
 `_native.annotate_bulk` call (exact port of annotation.cpp:379-555 — see
 native/annotate.cpp), and writes the gene sets / strand resolutions back.
 The Python implementation in `queries.annotate_alignments` remains the
-parity reference; `ARRIBA_TPU_TORCH_NO_NATIVE=1` disables this path.
+parity reference, and runs when there is no engine (_native_build.engine).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict
 
 import numpy as np
 
+from .._native_build import engine
 from ..constants import FORWARD
 from ..model import Fragment
 from .index import IntervalIndex
 from .tables import ExonTable, GeneTable
-
-
-def _native_module():
-    if os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") == "1":
-        return None
-    try:
-        from .. import _native
-    except ImportError:
-        return None
-    return _native if hasattr(_native, "annotate_bulk") else None
 
 
 def bind_annotation_engine(native, exon_index: IntervalIndex,
@@ -128,7 +118,7 @@ def annotate_all_native(chimeric_alignments: Dict[str, Fragment],
                         exon_index: IntervalIndex) -> bool:
     """Annotate every fragment via the native engine; returns False (leaving
     all fragments untouched) when the native module is unavailable."""
-    native = _native_module()
+    native = engine()
     if native is None:
         return False
 

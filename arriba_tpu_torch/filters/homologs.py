@@ -11,12 +11,12 @@ from typing import List
 
 import numpy as np
 
+from .._native_build import engine
 from ..annotation.tables import GeneTable
 from ..constants import FILTER_HOMOLOGS, FILTER_NONE
 from ..fusion import Fusion, Fusions
 from ..io.fasta import Assembly
 from ..seq import reverse_complement
-from . import mismappers as _mismappers
 from .mismappers import KmerIndices, kmer_to_int
 
 
@@ -50,8 +50,8 @@ def is_homolog(gene1: int, gene2: int, kmer_indices: KmerIndices, kmer_length: i
     if bool(genes.strand[small_gene]) != bool(genes.strand[big_gene]):
         small_gene_sequence = reverse_complement(small_gene_sequence)
 
-    if _mismappers._native is not None and _mismappers._native_engine_ready:
-        return bool(_mismappers._native.realign_is_homolog(
+    if getattr(kmer_indices, "in_engine", False):  # {}: no table was made
+        return bool(engine().realign_is_homolog(
             small_gene_sequence.tobytes(), small_contig, small_start, small_end,
             big_contig, big_start, big_end, small_length, max_identity_fraction))
 

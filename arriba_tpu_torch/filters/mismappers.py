@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from .. import trace
+from .._native_build import engine
 from ..annotation.index import IntervalIndex
 from ..annotation.queries import is_breakpoint_spliced
 from ..annotation.tables import ExonTable, GeneTable
@@ -32,16 +33,9 @@ from ..io.fasta import Assembly
 from ..model import Alignment, ChimericAlignments
 from ..seq import reverse_complement_str
 
-try:  # native realignment engine (exact recursion in C++); optional
-    import os as _os
-    if _os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE"):
-        _native = None
-    else:
-        from .. import _native
-except ImportError:  # pragma: no cover - build-environment dependent
-    _native = None
-
-_native_engine_ready = False
+# the native realignment engine (exact recursion in C++); None for the
+# pure-Python engine
+_native = engine()
 
 # 2-bit base encoding of the reference's kmer_to_int: T=0, G=1, C=2, other=3
 KMER_BASE_LUT = np.full(256, 3, dtype=np.int64)
@@ -55,13 +49,14 @@ KmerIndex = Dict[int, np.ndarray]
 
 class KmerIndices(dict):
     """contig -> KmerIndex (empty where the native engine holds the
-    positions), plus the coverage metadata the device accept
+    positions: in_engine), plus the coverage metadata the device accept
     path needs for soundness: which genes were indexed and with what
     padding (a device single-seed accept is only honored where the host
     index provably contains the seed position)."""
 
     padding: int = -1
     indexed_genes: frozenset = frozenset()
+    in_engine: bool = False
 
 
 def kmer_to_int(sequence: str, position: int, kmer_length: int) -> int:
@@ -101,12 +96,10 @@ def make_kmer_index(fusions: Fusions, assembly: Assembly, genes: GeneTable,
     kmer_indices.padding = padding
     kmer_indices.indexed_genes = frozenset(genes_to_filter)
 
-    # mirror the index into the native realignment engine; every reader of
-    # the positions (align_both_strands, is_homolog) asks the engine once it
-    # is ready, so the table then keeps only its contigs, each with an empty
-    # index, for the presence test
-    global _native_engine_ready
-    _native_engine_ready = False
+    # mirror the index into the native realignment engine; the table says
+    # so (in_engine), every reader of the positions (align_both_strands,
+    # is_homolog) then asks the engine, and the table keeps only its
+    # contigs, each with an empty index, for the presence test
     _NATIVE_SPLICE_REGISTERED.clear()
     if _native is not None:
         _native.realign_reset()
@@ -124,7 +117,7 @@ def make_kmer_index(fusions: Fusions, assembly: Assembly, genes: GeneTable,
             _native.realign_add_kmers(contig, gene_start, gene_end)
             kmer_indices.setdefault(contig, {})
         _native.realign_finalize()
-        _native_engine_ready = True
+        kmer_indices.in_engine = True
         return kmer_indices
 
     # collect (kmer, position) pairs per contig, then group
@@ -344,7 +337,7 @@ def align_both_strands(read_sequence: str, read_length: int, max_mate_gap: int,
             return True
 
         splice_sites = splice_sites_by_gene[gene]
-        if _native is not None and _native_engine_ready:
+        if kmer_indices.in_engine:
             if gene not in _NATIVE_SPLICE_REGISTERED:
                 _native.realign_set_splice_sites(
                     gene, np.asarray(splice_sites, np.int64).tobytes())

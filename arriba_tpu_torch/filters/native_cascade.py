@@ -4,8 +4,7 @@ One marshal of the (annotated) fragments feeds native/cascade.cpp, which
 runs the whole cascade and the mate-gap collection in C++; the pipeline
 keeps its stage-by-stage logging by reading the per-stage `remaining=`
 counters from here. The Python implementations in read_level.py remain the
-parity reference (ARRIBA_TPU_TORCH_NO_NATIVE=1 / ARRIBA_TPU_TORCH_NO_NATIVE_CASCADE=1
-fall back to them per stage).
+parity reference, and run when there is no engine (_native_build.engine).
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from ..constants import (FILTER_BLACKLIST, FILTER_END_TO_END,
                          FILTER_SHORT_ANCHOR, FILTER_HOMOLOGS,
                          FILTER_MISMAPPERS)
 from .. import trace
+from .._native_build import engine
 from ..ingest.stats import fragment_length_stats
 from . import read_level
 
@@ -50,22 +50,6 @@ _STAGE_FILTER_IDS = (FILTER_DUPLICATES, FILTER_UNINTERESTING_CONTIGS,
                      FILTER_SMALL_INSERT_SIZE, FILTER_LONG_GAP,
                      FILTER_SAME_GENE, FILTER_HAIRPIN, FILTER_MISMATCHES,
                      FILTER_LOW_ENTROPY)
-
-
-def _native_module():
-    if (os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") == "1"
-            or os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE_CASCADE") == "1"
-            # with offload on, the cascade is HYBRID: the C++ engine keeps
-            # the host-optimal stages and the batched low-entropy scan goes
-            # to the device at the stage-13 boundary
-            # (cascade_low_entropy_rows / cascade_set_filters)
-            ):
-        return None
-    try:
-        from .. import _native
-    except ImportError:
-        return None
-    return _native if hasattr(_native, "cascade_begin") else None
 
 
 class ReadLevelCascade:
@@ -84,7 +68,7 @@ class ReadLevelCascade:
         self.genes = genes
         self.exons = exons
         self.exon_index = exon_index
-        self._engine = _native_module()
+        self._engine = engine()
         self._begun = False
         self._counts = {}
         self._gaps: Optional[np.ndarray] = None
@@ -454,9 +438,7 @@ class ReadLevelCascade:
 
     def find_fusions(self, fusions):
         from ..fusions_finder import find_fusions
-        if not (self._native and hasattr(self._native, "find_fusions_native")):
-            if self._native is not None and hasattr(self._native, "cascade_release"):
-                self._native.cascade_release()  # don't pin the store
+        if not self._native:
             return find_fusions(self.ca, fusions, self.genes, self.exons,
                                 self.exon_index, self.state.max_mate_gap,
                                 self.options.subsampling_threshold)
@@ -609,9 +591,7 @@ class EventCascade:
         self.exons = read_cascade.exons
         self.exon_index = read_cascade.exon_index
         self._kmer_indices = None
-        native = read_cascade._native
-        self._native = native if (native is not None
-                                  and hasattr(native, "event_bind")) else None
+        self._native = read_cascade._native
         self._live = self._native is not None
         if (self._live
                 and os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE_EVENT") == "1"):
@@ -625,8 +605,7 @@ class EventCascade:
         """Multimapper cluster ids: adjacent fragments (sorted-name order)
         with equal HI-stripped names share an id (read_chimeric_alignments
         .cpp:792-802 key adjacency)."""
-        if (getattr(self.ca, "is_lazy_native", False)
-                and hasattr(self._native, "extract_cluster_ids")):
+        if getattr(self.ca, "is_lazy_native", False):
             return np.frombuffer(self._native.extract_cluster_ids(), np.int64)
         from ..model import strip_hi_tag_from_read_name
         ids = np.empty(len(self.ca), np.int64)
@@ -680,10 +659,7 @@ class EventCascade:
     def _dispatch(self, native_name: str, native_args: tuple, python_fn,
                   python_args: tuple):
         if self._live:
-            fn = getattr(self._native, native_name, None)
-            if fn is not None:
-                return fn(*native_args)
-            self.materialize()
+            return getattr(self._native, native_name)(*native_args)
         return python_fn(*python_args)
 
     # -- sharded mid-cascade statistics (parallel/stats.py) -------------------
@@ -863,7 +839,7 @@ class EventCascade:
 
     def known_fusions(self) -> int:
         from .blacklist import recover_known_fusions
-        if self._live and hasattr(self._native, "ev_known_fusions"):
+        if self._live:
             items = self._parse_item_pairs(self.options.known_fusions_file,
                                            allow_keyword2=False)
             return self._native.ev_known_fusions(
@@ -942,7 +918,7 @@ class EventCascade:
 
     def blacklist(self) -> int:
         from .blacklist import filter_blacklisted_ranges
-        if self._live and hasattr(self._native, "ev_blacklist"):
+        if self._live:
             items = self._parse_item_pairs(self.options.blacklist_file,
                                            allow_keyword2=True)
             return self._native.ev_blacklist(
@@ -981,7 +957,7 @@ class EventCascade:
     @trace.spanned("events.kmer_index")
     def make_kmer_index(self, padding: int, kmer_length: int) -> None:
         from .mismappers import indexed_bases, make_kmer_index
-        if self._live and hasattr(self._native, "ev_make_kmer_index"):
+        if self._live:
             self._native.ev_make_kmer_index(int(padding),
                                             int(self.options.threads))
             return
@@ -1042,7 +1018,6 @@ class EventCascade:
             return
         self._native_writer = (
             bool(self.options.discarded_output_file)
-            and hasattr(self._native, "ev_write_discarded")
             and not self.options.print_extra_info_for_discarded_fusions
             and not self.options.tags_file
             and not self.options.protein_domains_file)
@@ -1087,5 +1062,4 @@ class EventCascade:
         if getattr(self.ca, "is_lazy_native", False):
             self.ca.ensure_materialized()
         self._native.event_release()
-        if hasattr(self._native, "extract_release"):
-            self._native.extract_release()
+        self._native.extract_release()

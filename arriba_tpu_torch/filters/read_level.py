@@ -586,12 +586,6 @@ def filter_mismatches(chimeric_alignments: ChimericAlignments, assembly: Assembl
     genome_size = sum(len(assembly[c]) for c in range(len(interesting_contigs))
                       if interesting_contigs[c] and c in assembly)
 
-    from ..ingest.chimeric import _native
-    if _native is not None and hasattr(_native, "mismatch_scan"):
-        return _filter_mismatches_native(
-            chimeric_alignments, assembly, viral_contigs, mismatch_probability,
-            pvalue_cutoff, genome_size, _native)
-
     remaining = 0
     for mates in chimeric_alignments.values():
         if mates.filter != FILTER_NONE:
@@ -623,102 +617,6 @@ def filter_mismatches(chimeric_alignments: ChimericAlignments, assembly: Assembl
                 mates.filter = FILTER_MISMATCHES
                 continue
         remaining += 1
-    return remaining
-
-
-def _filter_mismatches_native(chimeric_alignments: ChimericAlignments,
-                              assembly: Assembly, viral_contigs: List[bool],
-                              mismatch_probability: float, pvalue_cutoff: float,
-                              genome_size: int, native) -> int:
-    """Bulk variant of filter_mismatches: candidate (mismatches, length)
-    pairs computed in one native call, decisions memoized per distinct pair
-    (the binomial test depends only on the counts)."""
-    candidate_contig: List[int] = []
-    candidate_start: List[int] = []
-    candidate_strand: List[int] = []
-    candidate_cigars: List[np.ndarray] = []
-    candidate_seqs: List[str] = []
-    candidate_extra: List[int] = []      # 2 if the multimapper penalty applies
-    pair_rows: List[Tuple[Fragment, int, int]] = []  # fragment, row1, row2 (-1 = skipped)
-
-    def add_candidate(alignment: Alignment, sequence: str, is_multimapper: bool) -> int:
-        candidate_contig.append(alignment.contig)
-        candidate_start.append(alignment.start)
-        candidate_strand.append(1 if alignment.strand == FORWARD else 0)
-        candidate_cigars.append(alignment.cigar)
-        candidate_seqs.append(sequence)
-        candidate_extra.append(2 if is_multimapper else 0)
-        return len(candidate_seqs) - 1
-
-    for mates in chimeric_alignments.values():
-        if mates.filter != FILTER_NONE:
-            continue
-        if len(mates) == 2:
-            m1, m2 = mates[MATE1], mates[MATE2]
-            row1 = row2 = -1
-            if not viral_contigs[m1.contig]:
-                row1 = add_candidate(m1, m1.sequence,
-                                     mates.multimapper and not viral_contigs[m2.contig])
-            if not viral_contigs[m2.contig]:
-                row2 = add_candidate(m2, m2.sequence,
-                                     mates.multimapper and not viral_contigs[m1.contig])
-        else:
-            m1 = mates[MATE1]
-            split, supp = mates[SPLIT_READ], mates[SUPPLEMENTARY]
-            row1 = row2 = -1
-            if not viral_contigs[m1.contig]:
-                row1 = add_candidate(m1, m1.sequence,
-                                     mates.multimapper and not viral_contigs[supp.contig])
-            if not viral_contigs[supp.contig]:
-                supp_sequence = (split.sequence if supp.strand == split.strand
-                                 else reverse_complement_str(split.sequence))
-                row2 = add_candidate(supp, supp_sequence,
-                                     mates.multimapper and not viral_contigs[m1.contig])
-        pair_rows.append((mates, row1, row2))
-
-    if candidate_seqs:
-        n_contigs = (max(candidate_contig) + 1) if candidate_contig else 0
-        assembly_list = [assembly.get(c) for c in range(n_contigs)]
-        cigar_offsets = np.zeros(len(candidate_cigars) + 1, np.int64)
-        for i, cigar in enumerate(candidate_cigars):
-            cigar_offsets[i + 1] = cigar_offsets[i] + len(cigar)
-        cigar_words = (np.concatenate(candidate_cigars).astype(np.uint32)
-                       if candidate_cigars else np.empty(0, np.uint32))
-        seq_lengths = np.fromiter((len(s) for s in candidate_seqs), np.int64,
-                                  len(candidate_seqs))
-        seq_offsets = np.zeros(len(candidate_seqs) + 1, np.int64)
-        np.cumsum(seq_lengths, out=seq_offsets[1:])
-        mism_b, len_b = native.mismatch_scan(
-            np.array(candidate_contig, np.int64).tobytes(),
-            np.array(candidate_start, np.int64).tobytes(),
-            np.array(candidate_strand, np.int64).tobytes(),
-            cigar_offsets.tobytes(), cigar_words.tobytes(),
-            seq_offsets.tobytes(),
-            "".join(candidate_seqs).encode("latin-1"), assembly_list)
-        mismatches = np.frombuffer(mism_b or b"", np.int64) + np.array(candidate_extra, np.int64)
-        lengths = np.frombuffer(len_b or b"", np.int64)
-
-        decision_cache: dict = {}
-
-        def decide(row: int) -> bool:
-            if row < 0:
-                return False
-            key = (int(mismatches[row]), int(lengths[row]))
-            cached = decision_cache.get(key)
-            if cached is None:
-                cached = _mismatch_decision(key[0], key[1], mismatch_probability,
-                                            genome_size, pvalue_cutoff)
-                decision_cache[key] = cached
-            return cached
-
-        for mates, row1, row2 in pair_rows:
-            if decide(row1) or decide(row2):
-                mates.filter = FILTER_MISMATCHES
-
-    remaining = 0
-    for mates in chimeric_alignments.values():
-        if mates.filter == FILTER_NONE:
-            remaining += 1
     return remaining
 
 
@@ -835,31 +733,13 @@ def filter_low_entropy(chimeric_alignments: ChimericAlignments, kmer_length: int
         n = len(row_seq)
         lengths = np.fromiter((len(s) for s in row_seq), np.int32, n)
         windows = np.array(row_windows, np.int32)
-        flags = None
+        L = max(len(s) for s in row_seq)
+        codes = np.full((n, L), 3, np.uint8)  # pad = code 3, same as N
+        for i, s in enumerate(row_seq):
+            codes[i, :len(s)] = KMER_BASE_LUT[np.frombuffer(
+                s.encode("latin-1"), np.uint8)]
         from ..device import offload_enabled
-        from ..ingest.chimeric import _native
-        offload = offload_enabled()
-        if (not offload and _native is not None
-                and hasattr(_native, "low_entropy_scan_flat")):
-            # CSR fast path: no padded code matrix
-            seq_offsets = np.zeros(n + 1, np.int64)
-            np.cumsum(lengths, out=seq_offsets[1:])
-            flags = np.zeros(n, np.uint8)
-            _native.low_entropy_scan_flat(
-                "".join(row_seq).encode("latin-1"), seq_offsets,
-                np.ascontiguousarray(windows[:, 0]),
-                np.ascontiguousarray(windows[:, 1]),
-                np.ascontiguousarray(windows[:, 2]),
-                np.ascontiguousarray(windows[:, 3]),
-                flags, kmer_content, kmer_length)
-            flags = flags.astype(bool)
-        if flags is None:
-            L = max(len(s) for s in row_seq)
-            codes = np.full((n, L), 3, np.uint8)  # pad = code 3, same as N
-            for i, s in enumerate(row_seq):
-                codes[i, :len(s)] = KMER_BASE_LUT[np.frombuffer(
-                    s.encode("latin-1"), np.uint8)]
-        if flags is None and offload:
+        if offload_enabled():
             # device path: the same recurrence as a batched device op (K2 on
             # CUDA); a device error raises
             from ..ops.readfilters import low_entropy_batch_chunked
@@ -870,17 +750,10 @@ def filter_low_entropy(chimeric_alignments: ChimericAlignments, kmer_length: int
                 np.ascontiguousarray(windows[:, 2]),
                 np.ascontiguousarray(windows[:, 3]),
                 kmer_content)
-        if flags is None and _native is not None and hasattr(_native, "low_entropy_scan"):
-            flags = np.zeros(n, np.uint8)
-            _native.low_entropy_scan(
-                np.ascontiguousarray(codes), np.ascontiguousarray(lengths),
-                np.ascontiguousarray(windows[:, 0]), np.ascontiguousarray(windows[:, 1]),
-                np.ascontiguousarray(windows[:, 2]), np.ascontiguousarray(windows[:, 3]),
-                flags, n, L, kmer_content, kmer_length)
-            flags = flags.astype(bool)
-        if flags is None:
-            flags = _low_entropy_flags(codes, lengths, windows[:, 0], windows[:, 1],
-                                       windows[:, 2], windows[:, 3], kmer_content,
+        else:
+            flags = _low_entropy_flags(codes, lengths, windows[:, 0],
+                                       windows[:, 1], windows[:, 2],
+                                       windows[:, 3], kmer_content,
                                        kmer_length)
         for i in np.nonzero(flags)[0]:
             row_fragment[int(i)].filter = FILTER_LOW_ENTROPY

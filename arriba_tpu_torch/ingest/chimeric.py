@@ -12,12 +12,14 @@ remove_malformed_alignments() normalization.
 from __future__ import annotations
 
 import copy
+import os
 import sys
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import trace
+from .._native_build import engine
 from ..annotation.index import IntervalIndex, combine_annotations
 from ..annotation.queries import (complement_strand_if,
                                   get_boundaries_of_biggest_gene)
@@ -30,20 +32,15 @@ from ..constants import (CIGAR_CONSUMES_REF, CIGAR_DIFF, CIGAR_HARD_CLIP,
 from ..contigs import ContigRegistry, is_interesting_contig
 from ..io.bam import (BamRecord, FDUP, FPAIRED, FPROPER_PAIR, FREAD1,
                       FREVERSE, FSECONDARY, FSUPPLEMENTARY, FUNMAP, FMUNMAP,
-                      open_alignment_file, parse_sam_record)
-
-try:  # the native data loader (C++): decode + collation + coverage for the
-    # uninteresting majority of reads; falls back to pure Python if unbuilt
-    import os as _os
-    if _os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE"):
-        _native = None
-    else:
-        from .. import _native
-except ImportError:  # pragma: no cover - build-environment dependent
-    _native = None
+                      open_alignment_file)
 from ..io.fasta import Assembly
 from ..model import Alignment, ChimericAlignments, Fragment
 from .stats import Coverage
+
+# the native data loader (C++): decode, collation, extraction and coverage
+# in one scan; None for the pure-Python engine
+_native = engine()
+
 
 def _path_is_bam(path: str) -> bool:
     """BAM = gzip/BGZF wrapping the 'BAM\\1' magic; a gzipped SAM is gzip
@@ -74,7 +71,7 @@ def _path_is_stream(path: str) -> bool:
     read_chimeric_alignments.cpp:560)."""
     import stat as _stat
     try:
-        mode = _os.stat(path).st_mode
+        mode = os.stat(path).st_mode
     except OSError:
         return False
     return (_stat.S_ISFIFO(mode) or _stat.S_ISCHR(mode)
@@ -84,7 +81,6 @@ def _path_is_stream(path: str) -> bool:
 def _native_loader_supported(path: str) -> bool:
     """True when the input is a regular SAM/SAM.gz/BAM file (the formats the
     native loader parses; it sniffs BAM vs SAM after decompression)."""
-    import os
     if not os.path.isfile(path):
         return False
     try:
@@ -778,220 +774,15 @@ def _materialize_fragments(chimeric_alignments: ChimericAlignments,
         chimeric_alignments[names[name_offsets[f]:name_offsets[f + 1]]] = mates
 
 
-def _scan_sam_sharded(path, name_to_tid, boundaries, interesting_per_tid,
-                      viral_per_tid, planes, external_duplicate_marking,
-                      threads, extract_tables, n_procs):
-    """ARRIBA_TPU_TORCH_SHARDS=N sample-sharded ingest: N forked worker processes
-    each scan a byte-range slice of the SAM (native shard_spec "worker"),
-    exporting fragments + leftover records + private coverage planes; the
-    master saturating-sums the planes, adopts every blob, replays the
-    leftovers (cross-boundary pairs), and runs the normal sort/mark tail
-    (shard_spec "merge"). Output is byte-identical to the unsharded scan:
-    coverage and counters are commutative reductions, pair collation is
-    name-keyed (order-free), and fragment order is fixed by the final
-    sort-by-name. This is the single-host process tier of the BASELINE
-    scaling row (ref: read_chimeric_alignments.cpp:611-749 — the record
-    loop is the embarrassingly parallel axis); each process maps to one
-    host of a multi-host deployment, with the merge traffic (planes +
-    fragment blobs) being exactly what would ride DCN."""
-    import tempfile
-
-    import time as _time
-    shard_timing = _os.environ.get("ARRIBA_TPU_TORCH_SHARD_TIMING") == "1"
-    t_begin = _time.perf_counter()
-    size = _os.path.getsize(path)
-    stripe = 16 << 20
-    try:
-        stripe_kb = int(_os.environ.get("ARRIBA_TPU_TORCH_SHARD_STRIPE_KB", "0"))
-        if stripe_kb > 0:
-            stripe = stripe_kb << 10
-    except ValueError:
-        pass
-    worker_threads = max(1, threads // n_procs)
-    shm = "/dev/shm" if _os.path.isdir("/dev/shm") else None
-    tmpdir = tempfile.mkdtemp(prefix="arriba_tpu_shards_", dir=shm)
-    worker_tables = extract_tables[:7] + (0,)
-
-    # per-worker coverage planes in MAP_SHARED memory allocated BEFORE the
-    # fork: workers write them in place and the master sums them directly —
-    # no serialization round trip (this merge traffic is exactly what would
-    # ride DCN on a multi-host deployment)
-    import mmap as _mmap
-
-    shm_refs = []
-
-    def _shared_like(array):
-        buf = _mmap.mmap(-1, max(1, array.nbytes))
-        shm_refs.append(buf)
-        shared = np.frombuffer(buf, dtype=array.dtype,
-                               count=array.size).reshape(array.shape)
-        return shared
-
-    worker_planes = []
-    for k in range(n_procs):
-        my_planes = []
-        for plane in planes:
-            if plane is None:
-                my_planes.append(None)
-            else:
-                cov, starts, ends = plane
-                my_planes.append((_shared_like(cov), _shared_like(starts),
-                                  _shared_like(ends)))
-        worker_planes.append(my_planes)
-
-    pids = []
-    try:
-        for k in range(n_procs):
-            out_path = _os.path.join(tmpdir, f"worker_{k}.npz")
-            pid = _os.fork()
-            if pid == 0:
-                status = 1
-                try:
-                    if _os.environ.get("ARRIBA_TPU_TORCH_SHARD_FAIL") == "1":
-                        raise RuntimeError("injected worker failure (test)")
-                    my_planes = worker_planes[k]
-                    tw0 = _time.perf_counter()
-                    (mapped, viral_counts, n_records,
-                     (missing_hi, malformed, no_chimeric),
-                     frag_blob, leftover_blob) = _native.scan_sam(
-                        path, name_to_tid, boundaries, interesting_per_tid,
-                        viral_per_tid, my_planes, external_duplicate_marking,
-                        worker_threads, worker_tables, 0,
-                        ("worker", k, n_procs, stripe))
-                    if shard_timing:
-                        print(f"[shard] worker {k} scan "
-                              f"{_time.perf_counter() - tw0:.2f}s "
-                              f"frag_blob={len(frag_blob)>>20}MB",
-                              file=sys.stderr)
-                    save = {"mapped": np.int64(mapped),
-                            "viral": np.array(viral_counts, np.int64),
-                            "n_records": np.int64(n_records),
-                            "missing_hi": np.int64(missing_hi),
-                            "malformed": np.int64(malformed),
-                            "no_chimeric": np.int64(no_chimeric),
-                            "frag_blob": np.frombuffer(
-                                bytearray(frag_blob or b""), np.uint8),
-                            "leftover_blob": np.frombuffer(
-                                bytearray(leftover_blob or b""), np.uint8)}
-                    with open(out_path + ".tmp", "wb") as fh:
-                        np.savez(fh, **save)
-                    _os.rename(out_path + ".tmp", out_path)
-                    status = 0
-                except BaseException as error:  # noqa: BLE001
-                    print(f"shard worker {k} failed: {error!r}",
-                          file=sys.stderr)
-                finally:
-                    _os._exit(status)
-            pids.append(pid)
-
-        if shard_timing:
-            print(f"[shard] spawn {_time.perf_counter() - t_begin:.2f}s",
-                  file=sys.stderr)
-        failed = False
-        for pid in pids:
-            _, status = _os.waitpid(pid, 0)
-            failed |= status != 0
-        if failed:
-            raise RuntimeError("sharded ingest worker failed")
-
-        mapped = n_records = missing_hi = malformed = 0
-        no_chimeric = True
-        viral_total = None
-        frag_blobs, leftover_blobs = [], []
-        workers = []
-        for k in range(n_procs):
-            data = np.load(_os.path.join(tmpdir, f"worker_{k}.npz"))
-            workers.append(data)
-            mapped += int(data["mapped"])
-            n_records += int(data["n_records"])
-            missing_hi += int(data["missing_hi"])
-            malformed += int(data["malformed"])
-            no_chimeric &= bool(data["no_chimeric"])
-            viral = data["viral"]
-            viral_total = viral if viral_total is None \
-                else viral_total + viral
-            frag_blobs.append(data["frag_blob"].tobytes())
-            leftover_blobs.append(data["leftover_blob"].tobytes())
-        for tid, plane in enumerate(planes):
-            if plane is None:
-                continue
-            cov, starts, ends = plane
-            # wide-sum + clamp == per-increment saturation (each is +1):
-            # one u32 accumulator per plane, all workers added, one clamp
-            wide = cov.astype(np.uint32)
-            for my_planes in worker_planes:
-                wcov, wstarts, wends = my_planes[tid]
-                wide += wcov
-                np.bitwise_or(starts, wstarts, out=starts)
-                np.bitwise_or(ends, wends, out=ends)
-            np.minimum(wide, 0xFFFF, out=wide)
-            cov[:] = wide.astype(np.uint16)
-        for data in workers:
-            data.close()
-        # the mmap buffers free when the numpy views are collected
-        if shard_timing:
-            print(f"[shard] workers joined+merged planes "
-                  f"{_time.perf_counter() - t_begin:.2f}s", file=sys.stderr)
-    finally:
-        import shutil
-        shutil.rmtree(tmpdir, ignore_errors=True)
-
-    t_merge = _time.perf_counter()
-    (header_bytes, merge_mapped, merge_viral, merge_records,
-     (merge_missing, merge_malformed, merge_no_chimeric),
-     names_blob, name_offsets_b, multimapper_count) = _native.scan_sam(
-        path, name_to_tid, boundaries, interesting_per_tid, viral_per_tid,
-        planes, external_duplicate_marking, threads, extract_tables, 0,
-        ("merge", frag_blobs, leftover_blobs))
-
-    if shard_timing:
-        print(f"[shard] master merge {_time.perf_counter() - t_merge:.2f}s",
-              file=sys.stderr)
-    viral_combined = [int(a) + int(b)
-                      for a, b in zip(viral_total, merge_viral)]
-    return (header_bytes, mapped + merge_mapped, viral_combined,
-            n_records + merge_records,
-            (missing_hi + merge_missing, malformed + merge_malformed,
-             1 if (no_chimeric and merge_no_chimeric) else 0),
-            names_blob, name_offsets_b, multimapper_count)
-
-
-def _scan(path, n_shard_procs, retain, stream_native, name_to_tid,
-          boundaries, interesting_per_tid, viral_per_tid, planes,
-          external_duplicate_marking, threads, extract_tables):
-    """The native extraction scan of path (the sharded SAM scan where asked
-    for and possible)."""
-    if (n_shard_procs > 1 and retain and not stream_native
-            and _path_is_plain_sam(path)):
-        try:
-            return _scan_sam_sharded(
-                path, name_to_tid, boundaries, bytes(interesting_per_tid),
-                bytes(viral_per_tid), planes, external_duplicate_marking,
-                threads, extract_tables, n_shard_procs)
-        except Exception as error:  # noqa: BLE001
-            # a worker crash must not abort the run: the unsharded scan is
-            # byte-identical by construction. Coverage planes may hold
-            # partial worker sums — rebuild them.
-            print(f"WARNING: sharded ingest failed ({error}); "
-                  f"falling back to the single-process scan "
-                  f"(output is unaffected)", file=sys.stderr)
-            for plane in planes:
-                if plane is not None:
-                    for arr in plane:
-                        arr[:] = 0
+def _scan(path, stream_native, name_to_tid, boundaries, interesting_per_tid,
+          viral_per_tid, external_duplicate_marking, threads, planes,
+          extract_tables):
+    """The native extraction scan of path (resumed on a stream that
+    scan_open has read the header of)."""
     return _native.scan_sam(
         path, name_to_tid, boundaries, bytes(interesting_per_tid),
         bytes(viral_per_tid), planes, external_duplicate_marking, threads,
         extract_tables, 1 if stream_native else 0)
-
-
-def _path_is_plain_sam(path: str) -> bool:
-    try:
-        with open(path, "rb") as fh:
-            magic = fh.read(4)
-    except OSError:
-        return False
-    return not magic.startswith(b"\x1f\x8b") and magic != b"BAM\x01"
 
 
 def read_chimeric_alignments(path: str, assembly: Assembly,
@@ -1014,7 +805,6 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
 
     is_stream = _path_is_stream(path)
     stream_native = (is_stream and _native is not None
-                     and hasattr(_native, "scan_open")
                      and is_rna_bam_file and not separate_chimeric_bam_file)
     if is_stream and not stream_native:
         # a single-consumer stream the native streaming scan cannot take
@@ -1035,7 +825,7 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                 external_duplicate_marking, max_itd_length, threads,
                 retain_native)
         finally:
-            _os.unlink(spooled)
+            os.unlink(spooled)
 
     bam_header = None  # a regular BAM file's header bytes (ingest/card.py)
     native_eligible = stream_native or (
@@ -1055,12 +845,10 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
         header = SamHeader(target_names=list(target_names),
                            target_lengths=list(target_lengths),
                            text=header_text)
-        records = iter(())  # replaced by the forwarded stream below
     elif native_eligible and _path_is_bam(path):
         from ..io.bam import read_bam_header
         header = read_bam_header(path)
         bam_header = header.raw
-        records = iter(())  # replaced by the forwarded stream below
     elif native_eligible:
         # SAM/SAM.gz on the native path: only the @ header lines are needed
         # here (the native scan re-reads the whole file itself) — a full
@@ -1083,7 +871,6 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                 if name is not None:
                     header.target_names.append(name)
                     header.target_lengths.append(length or 0)
-        records = iter(())  # replaced by the forwarded stream below
     else:
         header, records = open_alignment_file(path, reference_by_name={
             contigs.names[cid]: seq for cid, seq in assembly.items()})
@@ -1107,23 +894,30 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
     while len(mapped_viral_reads_by_contig) < len(contigs):
         mapped_viral_reads_by_contig.append(0)
 
-    # native fast path: the C++ loader fully handles "boring" proper pairs
-    # (decode + coverage + counters) and forwards only records that can
-    # affect chimeric extraction; the exact logic below then runs unchanged
-    # on the forwarded minority
-    native_boring_mapped = 0
     if native_eligible:
+        # the C++ loader runs the entire extraction loop (ITD rescue,
+        # read-through splitting, SA split reads, viral counting, coverage)
+        # and the malformed-alignment normalization, emitting fragments as
+        # columnar arrays
         name_to_tid = {name: tid for tid, name in enumerate(header.target_names)}
         boundaries = []
         planes = []
         interesting_per_tid = bytearray(len(tid_to_contig))
         viral_per_tid = bytearray(len(tid_to_contig))
+        gene_offsets = []
+        gene_items = []
         for tid, cid in enumerate(tid_to_contig):
             if cid < gene_index.n_contigs:
                 boundaries.append(np.ascontiguousarray(
                     gene_index.boundaries[cid], np.int64).tobytes())
+                gene_offsets.append(np.ascontiguousarray(
+                    gene_index.offsets[cid], np.int64).tobytes())
+                gene_items.append(np.ascontiguousarray(
+                    gene_index.items[cid], np.int64).tobytes())
             else:
                 boundaries.append(b"")
+                gene_offsets.append(np.zeros(1, np.int64).tobytes())
+                gene_items.append(b"")
             if cid < len(coverage.coverage) and len(coverage.coverage[cid]):
                 planes.append((coverage.coverage[cid],
                                coverage.fragment_starts[cid].view(np.uint8),
@@ -1132,122 +926,76 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
                 planes.append(None)
             interesting_per_tid[tid] = 1 if interesting_tids[cid] else 0
             viral_per_tid[tid] = 1 if viral_contigs_mask[cid] else 0
-        extract_capable = (hasattr(_native, "annotate_bulk")
-                           and _os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE_EXTRACT") != "1")
-        if extract_capable:
-            # full-native extraction: the C++ loader runs the entire
-            # extraction loop (ITD rescue, read-through splitting, SA split
-            # reads, viral counting, coverage) and the malformed-alignment
-            # normalization, emitting fragments as columnar arrays
-            gene_offsets = []
-            gene_items = []
-            for tid, cid in enumerate(tid_to_contig):
-                if cid < gene_index.n_contigs:
-                    gene_offsets.append(np.ascontiguousarray(
-                        gene_index.offsets[cid], np.int64).tobytes())
-                    gene_items.append(np.ascontiguousarray(
-                        gene_index.items[cid], np.int64).tobytes())
-                else:
-                    gene_offsets.append(np.zeros(1, np.int64).tobytes())
-                    gene_items.append(b"")
-            assembly_list = [assembly.get(cid) for cid in tid_to_contig]
-            # retained mode: the native store keeps the fragments (sorted,
-            # multimappers marked); Python receives names only and fragments
-            # materialize lazily. Only usable when this call owns the whole
-            # dict (no prior chimeric file merged in).
-            retain = (retain_native
-                      and hasattr(_native, "extract_export_fragment")
-                      and not chimeric_alignments
-                      and _os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE_RETAIN") != "1")
-            extract_tables = (
-                gene_offsets, gene_items,
-                np.ascontiguousarray(genes.start, np.int64).tobytes(),
-                np.ascontiguousarray(genes.end, np.int64).tobytes(),
-                assembly_list,
-                np.array(tid_to_contig, np.int64).tobytes(),
-                int(max_itd_length), 1 if retain else 0)
-            n_shard_procs = 0
-            try:
-                n_shard_procs = int(
-                    _os.environ.get("ARRIBA_TPU_TORCH_SHARDS", "0") or "0")
-            except ValueError:
-                pass
-            # a regular-file BGZF BAM: the card takes its background of
-            # boring proper pairs (ingest/card.py) and the scan reads the
-            # residue; the pass's coverage is in the planes already
-            card_result = None
-            if bam_header is not None:
-                from . import card
-                card_result = card.run(
-                    path, bam_header, boundaries, planes,
-                    bytes(interesting_per_tid), bytes(viral_per_tid),
-                    external_duplicate_marking)
-            scan_path = path if card_result is None else card_result.path
-            try:
-                with trace.span("ingest.scan"):
-                    result = _scan(scan_path, n_shard_procs, retain,
-                                   stream_native, name_to_tid, boundaries,
-                                   interesting_per_tid, viral_per_tid, planes,
-                                   external_duplicate_marking, threads,
-                                   extract_tables)
-            finally:
-                if card_result is not None:
-                    card_result.close()
-            if retain:
-                (_header_bytes, total_mapped, viral_counts, _n_records,
-                 (missing_hi_tag, malformed_count, no_chimeric_flag),
-                 _names_blob, _name_offsets_b, multimapper_count) = result
-                # the scan no longer serializes a name blob (always empty);
-                # the lazy view fills its dict straight from the store
-                lazy = LazyChimericAlignments(_native, None, multimapper_count)
-                retained_result = lazy
-            else:
-                main, seq_part = result
-                (_header_bytes, total_mapped, viral_counts, _n_records,
-                 (missing_hi_tag, malformed_count, no_chimeric_flag),
-                 arrays) = main
+        assembly_list = [assembly.get(cid) for cid in tid_to_contig]
+        # retained mode: the native store keeps the fragments (sorted,
+        # multimappers marked); Python receives names only and fragments
+        # materialize lazily. Only usable when this call owns the whole
+        # dict (no prior chimeric file merged in).
+        retain = retain_native and not chimeric_alignments
+        extract_tables = (
+            gene_offsets, gene_items,
+            np.ascontiguousarray(genes.start, np.int64).tobytes(),
+            np.ascontiguousarray(genes.end, np.int64).tobytes(),
+            assembly_list,
+            np.array(tid_to_contig, np.int64).tobytes(),
+            int(max_itd_length), 1 if retain else 0)
+        # a regular-file BGZF BAM: the card takes its background of boring
+        # proper pairs (ingest/card.py) and the scan reads the residue; the
+        # pass's coverage is in the planes already
+        card_result = None
+        if bam_header is not None:
+            from . import card
+            card_result = card.run(
+                path, bam_header, boundaries, planes,
+                bytes(interesting_per_tid), bytes(viral_per_tid),
+                external_duplicate_marking)
+        try:
+            with trace.span("ingest.scan"):
+                result = _scan(
+                    path if card_result is None else card_result.path,
+                    stream_native, name_to_tid, boundaries,
+                    interesting_per_tid, viral_per_tid,
+                    external_duplicate_marking, threads, planes,
+                    extract_tables)
+        finally:
             if card_result is not None:
-                total_mapped += card_result.mapped
-            for tid, count in enumerate(viral_counts):
-                mapped_viral_reads_by_contig[tid_to_contig[tid]] += count
-            if not retain:
-                _materialize_fragments(chimeric_alignments, arrays, seq_part)
-
-            if is_rna_bam_file and total_mapped == 0:
-                raise RuntimeError("no normal reads found")
-            if malformed_count > 0:
-                print(f"WARNING: {malformed_count} SAM records were malformed and ignored",
-                      file=sys.stderr)
-            if no_chimeric_flag:
-                raise RuntimeError(
-                    "no split reads or discordant mates found (STAR must either be run with "
-                    "'--chimOutType WithinBAM' or the file 'Chimeric.out.sam' must be passed "
-                    "to Arriba via the argument -c)")
-            if missing_hi_tag > 0:
-                print(f"WARNING: {missing_hi_tag} secondary alignments lack the 'HI' tag and were ignored",
-                      file=sys.stderr)
-            if retain:
-                return retained_result, total_mapped
-            return len(chimeric_alignments), total_mapped
-
-        with trace.span("ingest.scan"):
-            _, forwarded, native_boring_mapped, viral_counts, _n_records = \
-                _native.scan_sam(path, name_to_tid, boundaries,
-                                 bytes(interesting_per_tid),
-                                 bytes(viral_per_tid), planes,
-                                 external_duplicate_marking, threads, None,
-                                 1 if stream_native else 0)
+                card_result.close()
+        if retain:
+            (_header_bytes, total_mapped, viral_counts, _n_records,
+             (missing_hi_tag, malformed_count, no_chimeric_flag),
+             _names_blob, _name_offsets_b, multimapper_count) = result
+            # the scan no longer serializes a name blob (always empty);
+            # the lazy view fills its dict straight from the store
+            retained_result = LazyChimericAlignments(_native, None,
+                                                     multimapper_count)
+        else:
+            main, seq_part = result
+            (_header_bytes, total_mapped, viral_counts, _n_records,
+             (missing_hi_tag, malformed_count, no_chimeric_flag),
+             arrays) = main
+        if card_result is not None:
+            total_mapped += card_result.mapped
         for tid, count in enumerate(viral_counts):
             mapped_viral_reads_by_contig[tid_to_contig[tid]] += count
-        def _parse_forwarded():
-            import sys
-            for line in forwarded.decode("latin-1").splitlines():
-                try:
-                    yield parse_sam_record(line, name_to_tid)
-                except (ValueError, OverflowError, IndexError):
-                    print(f"WARNING: skipping unparseable SAM record: "
-                          f"{line[:80]!r}", file=sys.stderr)
-        records = _parse_forwarded()
+        if not retain:
+            _materialize_fragments(chimeric_alignments, arrays, seq_part)
+
+        if is_rna_bam_file and total_mapped == 0:
+            raise RuntimeError("no normal reads found")
+        if malformed_count > 0:
+            print(f"WARNING: {malformed_count} SAM records were malformed and ignored",
+                  file=sys.stderr)
+        if no_chimeric_flag:
+            raise RuntimeError(
+                "no split reads or discordant mates found (STAR must either be run with "
+                "'--chimOutType WithinBAM' or the file 'Chimeric.out.sam' must be passed "
+                "to Arriba via the argument -c)")
+        if missing_hi_tag > 0:
+            print(f"WARNING: {missing_hi_tag} secondary alignments lack the 'HI' tag and were ignored",
+                  file=sys.stderr)
+        if retain:
+            return retained_result, total_mapped
+        return len(chimeric_alignments), total_mapped
 
     collated: Dict[str, BamRecord] = {}
     no_chimeric_reads = True
@@ -1366,7 +1114,7 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
             if not external_duplicate_marking or not (record.flag & FDUP):
                 coverage.add_fragment(record, previously_seen_mate, is_read_through_alignment)
 
-    if is_rna_bam_file and mapped_reads + native_boring_mapped == 0:
+    if is_rna_bam_file and mapped_reads == 0:
         raise RuntimeError("no normal reads found")
     malformed_count += remove_malformed_alignments(chimeric_alignments)
     if malformed_count > 0:
@@ -1380,7 +1128,7 @@ def read_chimeric_alignments(path: str, assembly: Assembly,
     if missing_hi_tag > 0:
         print(f"WARNING: {missing_hi_tag} secondary alignments lack the 'HI' tag and were ignored",
               file=sys.stderr)
-    return len(chimeric_alignments), mapped_reads + native_boring_mapped
+    return len(chimeric_alignments), mapped_reads
 
 
 def assign_strands_from_strandedness(chimeric_alignments: ChimericAlignments,

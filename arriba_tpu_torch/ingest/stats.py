@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .._native_build import engine
 from ..constants import (CIGAR_CONSUMES_QUERY, CIGAR_CONSUMES_REF, DOWNSTREAM,
                          FORWARD, MATE1, REVERSE, SPLIT_READ, SUPPLEMENTARY,
                          STRANDEDNESS_NO, STRANDEDNESS_REVERSE,
@@ -55,12 +56,8 @@ class Coverage:
     def bind_native(self) -> None:
         """Register the coverage arrays with the native engine (called after
         resize); add_fragment then runs the walk in C++."""
-        try:
-            from .. import _native
-        except ImportError:
-            return
-        import os
-        if os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") or not hasattr(_native, "coverage_bind"):
+        native = engine()
+        if native is None:
             return
         planes = []
         for contig in range(len(self.coverage)):
@@ -70,23 +67,23 @@ class Coverage:
                                self.fragment_ends[contig].view(np.uint8)))
             else:
                 planes.append(None)
-        _native.coverage_bind(planes)
+        native.coverage_bind(planes)
         self._native_bound = True
 
     def add_fragment(self, mate1: BamRecord, mate2: Optional[BamRecord],
                      is_chimeric: bool) -> None:
         """read_stats.cpp:161-266 — dual-CIGAR walk over both mates."""
         if getattr(self, "_native_bound", False):
-            from .. import _native
+            native = engine()
             if mate2 is None:
-                _native.coverage_add(mate1.tid, mate1.pos, mate1.flag,
-                                     memoryview(mate1.cigar), 0, -1, 0, 0, b"",
-                                     is_chimeric)
+                native.coverage_add(mate1.tid, mate1.pos, mate1.flag,
+                                    memoryview(mate1.cigar), 0, -1, 0, 0, b"",
+                                    is_chimeric)
             else:
-                _native.coverage_add(mate1.tid, mate1.pos, mate1.flag,
-                                     memoryview(mate1.cigar), 1, mate2.tid,
-                                     mate2.pos, mate2.flag,
-                                     memoryview(mate2.cigar), is_chimeric)
+                native.coverage_add(mate1.tid, mate1.pos, mate1.flag,
+                                    memoryview(mate1.cigar), 1, mate2.tid,
+                                    mate2.pos, mate2.flag,
+                                    memoryview(mate2.cigar), is_chimeric)
             return
         if mate2 is None:
             mate2 = mate1

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import bz2
 import io
-import os
 import lzma
 import struct
 import zlib
@@ -26,6 +25,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .._native_build import engine
 from ..constants import make_cigar_word
 
 # ---------------------------------------------------------------------------
@@ -143,28 +143,6 @@ def _rans_lookup(table: Dict[int, Tuple[int, int]]) -> Tuple[np.ndarray, np.ndar
     return sym_of, cum_of, freq_of
 
 
-_NATIVE_CODECS_CACHE: list = []
-
-
-def _native_codecs():
-    """The C++ fast path (native/codecs.cpp) when the extension is built;
-    the Python decoders below remain the parity reference (and the only
-    path for pure-Python installs). Resolved once — rans_decode runs per
-    block (and recursively per compressed table / stripe substream), so
-    the import/env lookups must not sit on the hot path."""
-    if not _NATIVE_CODECS_CACHE:
-        native = None
-        if os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") != "1":
-            try:
-                from arriba_tpu_torch import _native
-                if hasattr(_native, "codec_rans4x8"):
-                    native = _native
-            except ImportError:
-                pass
-        _NATIVE_CODECS_CACHE.append(native)
-    return _NATIVE_CODECS_CACHE[0]
-
-
 def rans_decode(data: bytes, expected_size: Optional[int] = None) -> bytes:
     """expected_size (the block header's raw size) rejects corrupt streams
     before the decode loop runs: the embedded 32-bit size field of a
@@ -174,7 +152,9 @@ def rans_decode(data: bytes, expected_size: Optional[int] = None) -> bytes:
         embedded = struct.unpack("<I", data[5:9])[0]
         if embedded != expected_size:
             raise ValueError("rANS 4x8: block size field mismatch")
-    native = _native_codecs()
+    # the C++ decoder (native/codecs.cpp) when the engine runs; the Python
+    # decoder below is the parity reference
+    native = engine()
     if native is not None:
         return native.codec_rans4x8(data)
     return _rans_decode_py(data)

@@ -26,6 +26,8 @@ from __future__ import annotations
 import bz2
 from typing import List, Optional, Tuple
 
+from .._native_build import engine
+
 __all__ = [
     "rans4x16_decode",
     "arith_decode",
@@ -341,9 +343,8 @@ def _expand_rle(literals, rle_flags: bytearray, runs: ByteStream,
 
 def rans4x16_decode(data, out_len: Optional[int] = None) -> bytes:
     """Decode one rANS Nx16 container (CRAM 3.1 block method 5)."""
-    from .cram import _native_codecs
-    native = _native_codecs()
-    if native is not None and hasattr(native, "codec_rans4x16"):
+    native = engine()
+    if native is not None:
         return native.codec_rans4x16(bytes(data),
                                      -1 if out_len is None else out_len)
     return _rans4x16_decode_py(data, out_len)

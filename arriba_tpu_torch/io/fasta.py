@@ -17,6 +17,7 @@ from typing import Dict
 
 import numpy as np
 
+from .._native_build import engine
 from ..contigs import ContigRegistry, is_interesting_contig
 
 Assembly = Dict[int, np.ndarray]
@@ -41,17 +42,6 @@ def _read_bytes(path: str):
             return mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
         except (ValueError, OSError):  # empty file / exotic fs
             return fh.read()
-
-
-def _native_fasta_module():
-    import os
-    if os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") == "1":
-        return None
-    try:
-        from .. import _native
-    except ImportError:
-        return None
-    return _native if hasattr(_native, "fasta_bodies") else None
 
 
 def load_assembly(path: str, contigs: ContigRegistry, interesting_contigs: str) -> Assembly:
@@ -81,7 +71,7 @@ def load_assembly(path: str, contigs: ContigRegistry, interesting_contigs: str) 
                 pending.append((cid, header_end + 1, body_end))
         pos = -1 if next_record == -1 else next_record + 1
 
-    native = _native_fasta_module()
+    native = engine()
     if native is not None and pending:
         import os
         pairs = np.asarray([(s, e) for _c, s, e in pending], np.int64)

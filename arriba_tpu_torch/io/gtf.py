@@ -17,6 +17,7 @@ import numpy as np
 
 import re as _re
 
+from .._native_build import engine
 from ..annotation.tables import Annotation, ExonTable, GeneTable, TranscriptTable
 from ..contigs import ContigRegistry
 from .compressed import iter_lines
@@ -120,17 +121,6 @@ GENCODE_FIXES = [
 ]
 
 
-def _native_gtf_module():
-    import os
-    if os.environ.get("ARRIBA_TPU_TORCH_NO_NATIVE") == "1":
-        return None
-    try:
-        from .. import _native
-    except ImportError:
-        return None
-    return _native if hasattr(_native, "gtf_parse") else None
-
-
 def _read_annotation_gtf_native(native, path: str, features: GtfFeatures,
                                 contigs: ContigRegistry,
                                 assembly: Assembly) -> Annotation:
@@ -222,7 +212,7 @@ def read_annotation_gtf(path: str, gtf_features_spec: str, contigs: ContigRegist
                         assembly: Assembly) -> Annotation:
     features = parse_gtf_features(gtf_features_spec)
 
-    native = _native_gtf_module()
+    native = engine()
     if native is not None:
         return _read_annotation_gtf_native(native, path, features, contigs,
                                            assembly)
@@ -250,7 +240,7 @@ def read_annotation_gtf(path: str, gtf_features_spec: str, contigs: ContigRegist
         try:
             # GTF is one-based (annotation.cpp:210-211); _parse_coord follows
             # the same strtoll grammar as the native engine (native/gtf.cpp)
-            # so native and ARRIBA_TPU_TORCH_NO_NATIVE=1 runs warn identically
+            # so the native and the pure-Python engines warn identically
             start = _parse_coord(start_s) - 1
             end = _parse_coord(end_s) - 1
         except ValueError:

@@ -271,7 +271,7 @@ def get_sequence_from_pileup(pileup: Pileup, breakpoint: int, direction: bool,
 
 
 def _native_pileup_args(fusion: Fusion, index) -> tuple:
-    """Argument tuple for event.cpp ev_transcript_pileups/_consensus."""
+    """Argument tuple for event.cpp ev_transcript_consensus(_batch)."""
     rows = fusion.support_rows
     if rows is not None:
         sr1, sr2, dm = (np.asarray(r, np.int64) for r in rows)
@@ -465,23 +465,16 @@ def get_fusion_transcript_sequence(fusion: Fusion,
         return _finish_native_consensus(fusion, precomputed)
 
     native = getattr(chimeric_alignments, "native", None)
-    if (native is not None and hasattr(native, "ev_transcript_pileups")
+    if (native is not None
             and not getattr(chimeric_alignments, "_materialized", True)):
         # the fragments still live in the native store: run all ten pileup
-        # passes + the non-template-base scan there (event.cpp)
-        index = chimeric_alignments._index
-        pileup_args = _native_pileup_args(fusion, index)
-        if hasattr(native, "ev_transcript_consensus"):
-            # ... and the per-pileup consensus as well (event.cpp
-            # consensus_from_pileup); only the string assembly tail runs here
-            return _finish_native_consensus(
-                fusion, native.ev_transcript_consensus(
-                    *pileup_args, int(fusion.gene1), int(fusion.gene2)))
-        pileup1, pileup2, non_template_bases = \
-            native.ev_transcript_pileups(*pileup_args)
-        return _assemble_transcript_sequence(fusion, pileup1, pileup2,
-                                             non_template_bases, genes,
-                                             assembly)
+        # passes, the non-template-base scan and the per-pileup consensus
+        # there (event.cpp consensus_from_pileup); only the string assembly
+        # tail runs here
+        return _finish_native_consensus(
+            fusion, native.ev_transcript_consensus(
+                *_native_pileup_args(fusion, chimeric_alignments._index),
+                int(fusion.gene1), int(fusion.gene2)))
 
     if prebuilt_pileups is not None:
         pileup1, pileup2 = prebuilt_pileups   # from build_device_pileups
@@ -1315,12 +1308,13 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
     # native best-transcript selection: bind the transcript tables once and
     # run the scoring walk in C++ (event.cpp ev_get_transcripts)
     native_transcripts = None
-    _native_obj = getattr(chimeric_alignments, "native", None)
-    if (_native_obj is not None
-            and hasattr(_native_obj, "ev_get_transcripts")
-            and not getattr(chimeric_alignments, "_materialized", True)):
+    # the native store, while the fragments still live there
+    native = getattr(chimeric_alignments, "native", None)
+    if getattr(chimeric_alignments, "_materialized", True):
+        native = None
+    if native is not None:
         try:
-            _native_obj.ev_bind_transcript_tables(
+            native.ev_bind_transcript_tables(
                 np.ascontiguousarray(exons.transcript, np.int64).tobytes(),
                 np.ascontiguousarray(transcripts_table.first_exon,
                                      np.int64).tobytes(),
@@ -1328,7 +1322,7 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
                                      np.int64).tobytes(),
                 np.ascontiguousarray(transcripts_table.coding_length,
                                      np.int64).tobytes())
-            native_transcripts = _native_obj
+            native_transcripts = native
         except Exception:  # pragma: no cover - fall back to the Python walk
             native_transcripts = None
 
@@ -1336,9 +1330,7 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
     # array lookup instead of a Fragment build per supporting read
     native_filters = None
     name_to_index = None
-    native = getattr(chimeric_alignments, "native", None)
-    if (native is not None and hasattr(native, "extract_fragment_filters")
-            and not getattr(chimeric_alignments, "_materialized", True)):
+    if native is not None:
         try:
             native_filters = np.frombuffer(native.extract_fragment_filters(),
                                            np.int64)
@@ -1354,9 +1346,7 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
     # prefetch every fusion's transcript consensus in ONE native call (the
     # per-fusion pileups are independent, so they run on a thread pool)
     consensus_cache: Dict[int, tuple] = {}
-    if (print_extra_info and native is not None
-            and hasattr(native, "ev_transcript_consensus_batch")
-            and not getattr(chimeric_alignments, "_materialized", True)):
+    if print_extra_info and native is not None:
         index = chimeric_alignments._index
         eligible = [f for f in sorted_fusions
                     if not (f.predicted_strands_ambiguous
@@ -1367,21 +1357,17 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
                  for f in eligible], int(threads))
             consensus_cache = {id(f): r for f, r in zip(eligible, results)}
 
-    # device path (pure-Python install + accelerator): batch every
-    # fusion's per-base pileup accumulation through ONE device histogram
+    # device path (the fragments in Python, with an accelerator): batch
+    # every fusion's per-base pileup accumulation through ONE device
+    # histogram
     pileup_cache: Dict[int, Tuple[Pileup, Pileup]] = {}
-    if print_extra_info and not consensus_cache:
-        python_transcript_path = not (
-            native is not None and hasattr(native, "ev_transcript_pileups")
-            and not getattr(chimeric_alignments, "_materialized", True))
+    if print_extra_info and native is None:
         from ..device import offload_enabled
-        if python_transcript_path:
-            eligible = [f for f in sorted_fusions
-                        if not (f.predicted_strands_ambiguous
-                                or f.transcript_start_ambiguous)]
-            if eligible and offload_enabled():
-                pileup_cache = build_device_pileups(eligible,
-                                                    chimeric_alignments)
+        eligible = [f for f in sorted_fusions
+                    if not (f.predicted_strands_ambiguous
+                            or f.transcript_start_ambiguous)]
+        if eligible and offload_enabled():
+            pileup_cache = build_device_pileups(eligible, chimeric_alignments)
 
     lines = [HEADER]
     for f in sorted_fusions:
@@ -1520,8 +1506,7 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
         all_supporting_reads = (f.split_read1_list + f.split_read2_list
                                 + f.discordant_mate_list)
         joined_read_names = None
-        if (native_filters is not None
-                and hasattr(_native_obj, "extract_supporting_reads")):
+        if native_filters is not None:
             if f.support_rows is not None:
                 supporting_rows = np.concatenate(
                     [np.asarray(r, np.int64) for r in f.support_rows]) \
@@ -1532,7 +1517,7 @@ def write_fusions_to_file(fusions: Fusions, output_file: str,
                     [name_to_index[n] for n in all_supporting_reads],
                     np.int64)
             joined_read_names, filter_pairs = \
-                _native_obj.extract_supporting_reads(
+                native.extract_supporting_reads(
                     supporting_rows.tobytes())
             pairs = np.frombuffer(filter_pairs, np.int64)
             for k in range(0, len(pairs), 2):

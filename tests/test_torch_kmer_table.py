@@ -47,10 +47,11 @@ def _marks(fusions, chimeric_alignments=None):
 def captured(request, tmp_path_factory):
     """One CLI run of a sample on the Python event stages (offload on the
     CPU). At its index stage: the table with the native engine (the one
-    the run goes on with), the table with the engine off and the JAX
+    the run goes on with), the table built with the engine off and the JAX
     package's. At its homolog and mismapper stages: the fusions (and read
-    pairs) each filter marks on the engine's table, and on the full table
-    with the engine off, each on its own copy of the stage's input."""
+    pairs) each filter marks on the engine's table, and on the full table,
+    which says itself that its positions are not in the engine, each on
+    its own copy of the stage's input."""
     with pytest.MonkeyPatch.context() as monkeypatch:
         yield _capture(*SAMPLES[request.param],
                        tmp_path_factory.mktemp("sample"), monkeypatch)
@@ -71,7 +72,7 @@ def _capture(sample, extra, marking, tmp_path, monkeypatch):
         seen["jax"] = jax_mismappers.make_kmer_index(
             fusions, assembly, genes, padding, kmer_length)
         seen["lean"] = make(fusions, assembly, genes, padding, kmer_length)
-        assert mismappers._native_engine_ready
+        assert seen["lean"].in_engine and not seen["full"].in_engine
         return seen["lean"]
 
     def homologs_twice(fusions, kmer_indices, *rest):
@@ -79,9 +80,7 @@ def _capture(sample, extra, marking, tmp_path, monkeypatch):
         lean = copy.deepcopy(fusions)
         remaining = filter_homologs(lean, kmer_indices, *rest)
         full = copy.deepcopy(fusions)
-        with monkeypatch.context() as off:
-            off.setattr(mismappers, "_native", None)
-            full_remaining = filter_homologs(full, seen["full"], *rest)
+        full_remaining = filter_homologs(full, seen["full"], *rest)
         seen["homologs"] = ((remaining, _marks(lean)),
                             (full_remaining, _marks(full)))
         return filter_homologs(fusions, kmer_indices, *rest)
@@ -103,9 +102,7 @@ def _capture(sample, extra, marking, tmp_path, monkeypatch):
             return remaining, marks
 
         lean = once(kmer_indices)
-        with monkeypatch.context() as off:
-            off.setattr(mismappers, "_native", None)
-            full = once(seen["full"])
+        full = once(seen["full"])
         assert {name: mates.filter
                 for name, mates in chimeric_alignments.items()} == before
         seen["mismappers"] = (lean, full)
